@@ -8,7 +8,11 @@ the originals. Every entry point takes an explicit ``device``.
 
 from spec_viterbi_tpu_torch.hmm import HMM, almost_equal_vec
 from spec_viterbi_tpu_torch.io import read_emit_seq, read_hmm
-from spec_viterbi_tpu_torch.models import ViterbiDecoder, viterbi_scores_oracle
+from spec_viterbi_tpu_torch.models import (
+    ViterbiDecoder,
+    viterbi_path_oracle,
+    viterbi_scores_oracle,
+)
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 
 __version__ = "0.1.0"
@@ -20,5 +24,6 @@ __all__ = [
     "read_emit_seq",
     "ViterbiDecoder",
     "StructuredOperator",
+    "viterbi_path_oracle",
     "viterbi_scores_oracle",
 ]

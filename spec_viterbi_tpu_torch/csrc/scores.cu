@@ -29,21 +29,7 @@
 // One CTA owns one lane, so a lane that is done stops (the masked
 // kernel's per-lane freeze) and lanes never wait for each other.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#define SVT_THREADS 256
-#define SVT_WARPS (SVT_THREADS / 32)
-
-// Caps of the descriptors; fused_eligible() keeps D + R + C + Z <= 24 and
-// Z <= 8, the uniform plans keep their fixes within MAX_COL_EXTRAS = 8.
-#define MAX_DIAG 8
-#define MAX_ROW 24
-#define MAX_COL 24
-#define MAX_RES 8
-#define MAX_SPECIAL 40
-#define MAX_UNI 24
-#define MAX_CANDS 216
+#include "common.cuh"
 
 // Special-row flags of the FS descriptor.
 #define SP_USE_ACC 1  // start from the bulk candidate (else only the listed ones)
@@ -52,17 +38,6 @@
 // Flags of the FS per-state byte table.
 #define ST_SHARED 1   // in the shared column support
 #define ST_BULK 2     // shared and not special: reduced inside the bulk pass
-
-struct ScoresDesc {
-  int n, n_diag, n_row, n_col, n_res, n_special;
-  int diag_off[MAX_DIAG];
-  int row_idx[MAX_ROW];
-  int col_idx[MAX_COL];
-  int res_src[MAX_RES];
-  int res_dst[MAX_RES];
-  float res_val[MAX_RES];
-  int sp_row[MAX_SPECIAL];
-};
 
 struct FsDesc {
   int n, d, n_uni, n_special;
@@ -238,11 +213,6 @@ scores_fs_kernel(const FsDesc desc, const float* __restrict__ dv,
     nxt = tmp;
   }
   for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
-}
-
-static int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 extern "C" {

@@ -6,9 +6,11 @@ from spec_viterbi_tpu_torch.io.generators import (
     generate_profile_hmm,
     generate_random_hmm,
     generate_random_sequences,
+    generate_tie_heavy_hmm,
 )
 
 __all__ = [
+    "generate_tie_heavy_hmm",
     "read_hmm",
     "write_chmm",
     "read_emit_seq",

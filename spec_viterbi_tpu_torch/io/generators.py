@@ -3,8 +3,9 @@
 ``generate_random_hmm`` and ``generate_random_sequences`` are copied from
 ``spec_viterbi_tpu/io/generators.py``. ``generate_profile_hmm`` is new: it
 stands in for the Pfam-derived ``.chmm`` corpus, which is not part of the
-repository, in tests and in the smoke run. It is test data, not a decoder
-feature.
+repository, in tests and in the smoke run. ``generate_tie_heavy_hmm`` is
+new too: a model whose costs are small integers, to hold the path tie
+rule. Both are test data, not decoder features.
 """
 
 from __future__ import annotations
@@ -137,6 +138,52 @@ def generate_profile_hmm(
         ),
         start_probabilities_cols=np.array([0], dtype=np.int64),
         start_probabilities=to_modified_prob_np(np.array([1.0])),
+    )
+    hmm.validate()
+    return hmm
+
+
+def generate_tie_heavy_hmm(states: int = 300, emit_num: int = 5, seed: int = 0) -> HMM:
+    """Seeded fused-eligible model on which equal-cost paths are common.
+
+    Test and smoke data for the path tie rule, not a decoder feature.
+    Every probability is drawn from {1, 0.5, 0.25, 0}, so every cost is
+    -0.0 (p = 1), 1, 2 or +inf and many candidates tie. Structure: state 0
+    enters every state (a dense row), states 1..N-2 form a chain (the +1
+    diagonal), every state enters the last one (a dense column), plus three
+    residual entries. The last symbol is dead (no state emits it), so a
+    sequence through it drives every score to +inf.
+    """
+    if states < 40:
+        raise ValueError("the tie-heavy model needs at least 40 states")
+    rng = np.random.default_rng(seed)
+    levels = np.array([1.0, 0.5, 0.25, 0.0])
+
+    def draw(size):
+        return rng.choice(levels, size=size, p=[0.35, 0.3, 0.25, 0.1])
+
+    last = states - 1
+    pairs = {(0, j) for j in range(states)}
+    pairs |= {(i, i + 1) for i in range(1, states - 1)}
+    pairs |= {(i, last) for i in range(1, states)}
+    residual = set()
+    while len(residual) < 3:
+        s, d = (int(x) for x in rng.integers(1, last, size=2))
+        if d - s not in (0, 1) and all(d - s != d2 - s2 for s2, d2 in residual):
+            residual.add((s, d))
+    keys = sorted(pairs | residual)
+    emissions = draw((emit_num, states))
+    emissions[-1] = 0.0  # the dead symbol
+    starts = np.array(sorted({0, 1, int(rng.integers(2, last))}), dtype=np.int64)
+    hmm = HMM(
+        states_num=states,
+        emit_num=emit_num,
+        trans_rows=np.array([k[0] for k in keys], np.int64),
+        trans_cols=np.array([k[1] for k in keys], np.int64),
+        trans_probs=to_modified_prob_np(draw(len(keys))),
+        emissions=np.ascontiguousarray(to_modified_prob_np(emissions), dtype=MOD_PROB_DTYPE),
+        start_probabilities_cols=starts,
+        start_probabilities=to_modified_prob_np(rng.choice(levels[:3], size=len(starts))),
     )
     hmm.validate()
     return hmm

@@ -2,11 +2,13 @@
 
 The port of ``spec_viterbi_tpu/models/decoder.py``. API parity target:
 ``run_Viterbi(hmm, seq) -> Mod_prob_vec_t``, the final per-state −log2
-score vector. On a CUDA device, fused-eligible operators decode through
-the hand-written kernels of :mod:`spec_viterbi_tpu_torch.ops.fused`;
-otherwise (a CPU device, ``use_kernels=False``, or an operator too
-irregular for the kernels) the plain structured loop runs, the
-counterpart of the JAX package's XLA structured path.
+score vector; ``decode_path``/``decode_path_batch`` add the exact Viterbi
+path and ``streaming()`` the stream engines. On a CUDA device,
+fused-eligible operators decode batches through the hand-written kernels
+of :mod:`spec_viterbi_tpu_torch.ops.fused`; otherwise (a CPU device,
+``use_kernels=False``, or an operator too irregular for the kernels) the
+plain structured loop runs, the counterpart of the JAX package's XLA
+structured path.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ import numpy as np
 import torch
 
 from spec_viterbi_tpu_torch.hmm import HMM, pad_to_lane, validate_obs_seq
+from spec_viterbi_tpu_torch.models.streaming_xla import PlainStreamDecoder
 from spec_viterbi_tpu_torch.ops import fused
 from spec_viterbi_tpu_torch.ops.structured import (
     StructuredOperator,
+    structured_path_batch,
     structured_scores_batch,
 )
 from spec_viterbi_tpu_torch.utils.batching import bucket_plan, pad_batch
@@ -69,6 +73,8 @@ class ViterbiDecoder:
                 "dense mode is not ported to PyTorch yet (ROADMAP A6)"
             )
         self.mode = "structured"
+        self._use_kernels = use_kernels
+        self._stream_engine = None
         self.states_num = hmm.states_num
         self._sop = sop
         self._sop_arrs = sop.to(self.device)
@@ -87,6 +93,67 @@ class ViterbiDecoder:
     def decode(self, seq: np.ndarray) -> np.ndarray:
         """``run_Viterbi`` parity: final score vector for one sequence."""
         return self.decode_batch([np.asarray(seq)], bucketed=False)[0]
+
+    def decode_path(self, seq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, path): the final score vector and the Viterbi path, with
+        the oracle's tie rule. Runs the plain argmin scan on the decoder's
+        device, as the JAX decoder runs this method on its XLA structured
+        path and never on the fused kernel."""
+        seq = validate_obs_seq(seq, self.hmm.emit_num)
+        if len(seq) == 0:
+            raise ValueError("cannot decode an empty sequence")
+        s = torch.as_tensor(seq, device=self.device)[:, None]  # [T, 1]
+        em_t = self.emissions.T
+        v0 = em_t[:, s[0].long()] + self.pi[:, None]
+        v, src = structured_path_batch(
+            self._sop, self._sop_arrs, em_t, v0, s[1:], None, torch.int32
+        )
+        last = torch.argmin(v, dim=0).to(torch.int32)  # [1]
+        rev = fused.backtrace_plain(src, last)  # [T-1, 1]
+        path = torch.cat([rev[:, 0], last])
+        return v[: self.states_num, 0].cpu().numpy(), path.cpu().numpy()
+
+    def decode_path_batch(
+        self, seqs: list[np.ndarray]
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """(scores, path) per sequence, with the oracle's tie rule.
+
+        With the kernels, the fused path decodes the batch (int16
+        backpointers, bucketed by length, lane-chunked so every call fits
+        the backpointer budget). Only when even one 128-lane block of the
+        longest sequence exceeds that budget, or without the kernels, are
+        sequences decoded one at a time (the JAX package's capacity rule).
+        """
+        if not seqs:
+            return []
+        if self._fused is not None and self._fused.path_supported(
+            max(len(s) for s in seqs)
+        ):
+            return self._fused.decode_path_batch(seqs)
+        return [self.decode_path(s) for s in seqs]
+
+    def streaming(self):
+        """The streaming engine for this model (cached): ``stream_begin`` /
+        ``stream_feed`` / ``stream_scores`` for constant-memory scores over
+        unbounded input, the ``stream_*_path`` family for exact paths by
+        checkpoint and rematerialize, and ``stream_save``/``stream_load``.
+
+        A fused-eligible operator gets the fused engine on the decoder's
+        device (the kernels on ``cuda``, their plain versions on ``cpu``),
+        unless ``use_kernels=False``; every other case gets the plain
+        stream engine, which takes any operator. The two engines' saved
+        states are not interchangeable.
+        """
+        if self._stream_engine is None:
+            n = self._sop.n
+            em, pi = self.hmm.emission_matrix(pad_to=n), self.hmm.start_vector(pad_to=n)
+            if self._use_kernels is not False and fused.fused_eligible(self._sop):
+                self._stream_engine = self._fused or fused.FusedStructuredDecoder(
+                    self._sop, em, pi, device=self.device
+                )
+            else:
+                self._stream_engine = PlainStreamDecoder(self._sop, em, pi, device=self.device)
+        return self._stream_engine
 
     def prepare_batch(self, seqs: list[np.ndarray], t_pad: int | None = None):
         """Validate, pad and upload a batch once; returns a device handle.

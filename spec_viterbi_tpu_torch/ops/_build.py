@@ -7,8 +7,8 @@ name carries a hash of the sources and flags, so an edited source builds
 anew. A build failure raises.
 
 The ctypes structures here mirror the descriptor structs of
-``csrc/scores.cu`` field for field; :func:`library` checks their sizes
-against the library's own ``sizeof``.
+``csrc/common.cuh`` and ``csrc/scores.cu`` field for field;
+:func:`library` checks their sizes against the library's own ``sizeof``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# caps of the descriptors, as #defined in csrc/scores.cu
+# caps of the descriptors, as #defined in csrc/common.cuh
 MAX_DIAG = 8
 MAX_ROW = 24
 MAX_COL = 24
@@ -128,9 +128,13 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_masked.restype = i32
     lib.svt_scores_fs.argtypes = [vp] * 7 + [i32, i32, vp]
     lib.svt_scores_fs.restype = i32
+    lib.svt_path.argtypes = [vp] * 10 + [i32, i32, vp]
+    lib.svt_path.restype = i32
+    lib.svt_backtrace.argtypes = [vp] * 3 + [i32, i32, i32, vp]
+    lib.svt_backtrace.restype = i32
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):
         if lib.svt_desc_size(which) != ctypes.sizeof(struct):
-            raise RuntimeError(f"{struct.__name__} layout differs from csrc/scores.cu")
+            raise RuntimeError(f"{struct.__name__} layout differs from csrc/")
     _lib = lib
     return lib
 

@@ -1,25 +1,31 @@
-"""Fused whole-sequence structured Viterbi scores on the GPU.
+"""Fused whole-sequence structured Viterbi on the GPU: scores, exact
+paths and streaming.
 
-The port of the scores flow of ``spec_viterbi_tpu/ops/fused_pallas.py``.
-One kernel launch runs the whole T-step recurrence of a batch, with each
-lane's score carry held on chip (``csrc/scores.cu``):
+The port of ``spec_viterbi_tpu/ops/fused_pallas.py``. One kernel launch
+runs the whole T-step recurrence of a batch, with each lane's carry held
+on chip (``csrc/scores.cu``, ``csrc/path.cu``):
 
 - :func:`scores_masked` (kernel ``svt_scores_masked``) replaces the masked
   Pallas kernel ``_make_unrolled_kernel``: any fused-eligible operator,
   each lane stopping at its own length. It takes ragged and bucketed
-  batches, and uniform batches outside the FS class.
+  batches, uniform batches outside the FS class, and the stream feeds.
 - :func:`scores_fs` (kernel ``svt_scores_fs``) replaces the frame-shifted
   Pallas kernel ``_make_fs_kernel``: unmasked, for the single-diagonal
   operators whose dense rows and columns collapse into the uniform plans
   (``_fs_ok``), i.e. uniform-length batches of corpus-shaped models.
+- :func:`path` (kernel ``svt_path``) replaces ``_make_path_kernel``: the
+  masked or unmasked recurrence with ``(value, source)`` pairs under the
+  oracle's tie rule, writing int16 backpointers ``[T-1, B, n]``.
+- :func:`backtrace` (kernel ``svt_backtrace``) replaces
+  ``_backtrace_kernel``: the reverse walk from a boundary state.
 
-Both read the emission row ``em[o_t]`` directly and compute in exact f32
-with real ``+inf``, so their scores are bit-equal to the numpy oracle.
-The TPU-specific parts of the JAX module have no counterpart here: the
-one-hot MXU emission select and its bf16 splits, the finite ``BIG``
-stand-in for +inf, rolls with inf-baked wrap rows, the rotating frame,
-unroll and lane-block planning, VMEM limits, narrow symbol uploads and
-lane padding.
+All read the emission row ``em[o_t]`` directly and compute in exact f32
+with real ``+inf``, so scores are bit-equal to the numpy oracle and paths
+equal ``viterbi_path_oracle``'s. The TPU-specific parts of the JAX module
+have no counterpart here: the one-hot MXU emission select and its bf16
+splits, the finite ``BIG`` stand-in for +inf, rolls with inf-baked wrap
+rows, the rotating frame, unroll and lane-block planning, VMEM limits,
+narrow symbol uploads and lane padding.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; any other device raises.
@@ -29,6 +35,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
+import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,9 +47,10 @@ from spec_viterbi_tpu_torch.ops import _build
 from spec_viterbi_tpu_torch.ops.structured import (
     OperatorTensors,
     StructuredOperator,
+    structured_path_batch,
     structured_scores_batch,
 )
-from spec_viterbi_tpu_torch.utils.batching import bucket_plan
+from spec_viterbi_tpu_torch.utils.batching import bucket_plan, quantize_t
 
 # lane block of the bucket plans: kept at the JAX package's value so a
 # ragged batch is cut into the same buckets (and runs the same kernels)
@@ -52,9 +62,12 @@ MAX_FUSED_RESIDUAL = 8
 # Uniform-column decomposition cap: scalar-row corrections across all cols.
 MAX_COL_EXTRAS = 8
 
-# Launch counts of the two kernels; a wrapper adds one where it launches
-# its kernel and nowhere else.
-launches = {"scores_masked": 0, "scores_fs": 0}
+# int16 backpointers address at most this many states
+INT16_STATES = np.iinfo(np.int16).max
+
+# Launch counts of the kernels; a wrapper adds one where it launches its
+# kernel and nowhere else.
+launches = {"scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 0}
 
 
 def reset_launches() -> None:
@@ -430,6 +443,106 @@ def scores_fs(
     return out
 
 
+# ---- the path kernels: svt_path and svt_backtrace -------------------------
+
+
+def path_plain(
+    t: MaskedTables,
+    em_t: torch.Tensor,
+    v0: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``svt_path``: the masked argmin scan.
+    ``em_t`` [n, E] → (carry [n, B] f32, src [T-1, B, n] int16)."""
+    return structured_path_batch(t.sop, t.arrs, em_t, v0, obs, lengths, torch.int16)
+
+
+def path(
+    t: MaskedTables,
+    em: torch.Tensor,
+    v0: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance ``v0`` [n, B] through ``obs`` [T-1, B] as :func:`scores_masked`
+    does, and keep the winning source of every step: returns
+    ``(carry [n, B] f32, src [T-1, B, n] int16)``. A lane past its length
+    writes identity pointers. ``em`` is the [E, n] emission table."""
+    if t.sop.n > INT16_STATES:
+        raise ValueError(f"{t.sop.n} states do not fit int16 backpointers")
+    if v0.device.type == "cpu":
+        return path_plain(t, em.T, v0, obs, lengths)
+    _check_cuda(t.sop.n, em, v0, obs, lengths)
+    steps, b = obs.shape
+    out = torch.empty_like(v0)
+    bp = torch.empty((steps, b, t.sop.n), dtype=torch.int16, device=v0.device)
+    if b == 0:
+        return out, bp
+    lib = _build.library()
+    diag_vals, row_vals, col_vals, *_ = t.arrs
+    with torch.cuda.device(v0.device):
+        rc = lib.svt_path(
+            ctypes.byref(t.desc),
+            diag_vals.data_ptr(), row_vals.data_ptr(), col_vals.data_ptr(),
+            em.data_ptr(), v0.data_ptr(), obs.data_ptr(),
+            None if lengths is None else lengths.data_ptr(),
+            out.data_ptr(), bp.data_ptr(), b, steps,
+            torch.cuda.current_stream(v0.device).cuda_stream,
+        )
+        _build.check(lib, rc, "svt_path")
+        launches["path"] += 1
+    return out, bp
+
+
+def backtrace_plain(src: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``svt_backtrace``: one ``gather`` of the [B, n]
+    pointer row per step. ``src`` [T, B, n] (any integer type),
+    ``boundary`` [B] → ``rev`` [T, B] int32, ``rev[t]`` the states at
+    position ``t``, ``rev[T]`` being ``boundary``."""
+    steps, b = src.shape[:2]
+    rev = torch.empty((steps, b), dtype=torch.int32, device=src.device)
+    state = boundary.long()[:, None]
+    for k in range(steps - 1, -1, -1):
+        state = src[k].gather(1, state).long()
+        rev[k] = state[:, 0]
+    return rev
+
+
+def backtrace(src: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
+    """Walk ``src`` [T, B, n] int16 back from ``boundary`` [B] int32 (the
+    states one position past the last pointer row) → ``rev`` [T, B]
+    int32."""
+    if src.device.type == "cpu":
+        return backtrace_plain(src, boundary)
+    if src.device.type != "cuda":
+        raise ValueError(f"no kernel for device {src.device}")
+    steps, b, n = src.shape
+    for x, dtype, shape, name in (
+        (src, torch.int16, (steps, b, n), "src"),
+        (boundary, torch.int32, (b,), "boundary"),
+    ):
+        if x.device != src.device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: want {dtype} {shape} on {src.device}, "
+                f"got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    rev = torch.empty((steps, b), dtype=torch.int32, device=src.device)
+    if b == 0 or steps == 0:
+        return rev
+    lib = _build.library()
+    with torch.cuda.device(src.device):
+        rc = lib.svt_backtrace(
+            src.data_ptr(), boundary.data_ptr(), rev.data_ptr(), b, n, steps,
+            torch.cuda.current_stream(src.device).cuda_stream,
+        )
+        _build.check(lib, rc, "svt_backtrace")
+        launches["backtrace"] += 1
+    return rev
+
+
 def _check_cuda(n, em, v0, obs, lengths) -> None:
     """What the kernels take: contiguous CUDA tensors of one device."""
     if v0.device.type != "cuda":
@@ -463,8 +576,294 @@ def _expand_symbols(flat, off, last, t_total: int) -> torch.Tensor:
     return flat[idx]
 
 
-class FusedStructuredDecoder:
-    """Whole-sequence fused decoder for one HMM (batched, scores only)."""
+class StreamState(NamedTuple):
+    """Resumable streaming-decode state: the device carry and the lane count."""
+
+    carry: torch.Tensor  # [n, B] f32, +inf as the semiring zero
+    b_real: int
+
+
+class StreamChunk(NamedTuple):
+    """One retained chunk of a path stream: the staged device symbols
+    (T-quantized, reused as they are by the finalize re-run) and the real
+    step count."""
+
+    syms: torch.Tensor  # [T_q, B] int32
+    lengths: torch.Tensor  # [B] int32, per lane valid + 1
+    t_c: int
+
+
+class PathStreamState(NamedTuple):
+    """Streaming exact-path state: the carry plus, per fed chunk, the carry
+    at the chunk's start (``checkpoints``) and the chunk (``chunks``)."""
+
+    carry: torch.Tensor  # [n, B]
+    b_real: int
+    checkpoints: tuple  # of [n, B] carries
+    chunks: tuple  # of StreamChunk
+
+
+def model_key(prefix: str, sop: StructuredOperator, emissions, pi) -> str:
+    """Content fingerprint guarding persisted stream states: values and
+    structure (two models can share value bytes and differ in diagonal
+    offsets), with shape and dtype delimiters. ``prefix`` names the
+    engine, so a state of another engine (or of the JAX package, whose
+    carries are ``BIG``-clamped) is refused."""
+    h = hashlib.sha1(prefix.encode() + b"|")
+    for a in (
+        emissions, pi,
+        sop.diag_vals, sop.row_vals, sop.col_vals, sop.res_vals,
+        np.asarray(sop.diag_offsets, np.int64),
+        np.asarray(sop.row_idx, np.int64),
+        np.asarray(sop.col_idx, np.int64),
+        np.asarray(sop.res_src, np.int64),
+        np.asarray(sop.res_dst, np.int64),
+    ):
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.shape}{a.dtype}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+class _StreamAPI:
+    """The streaming-decode protocol, shared by both stream engines.
+
+    ``stream_begin/feed/scores`` (constant-memory scores over unbounded
+    input), the ``stream_*_path`` family (exact paths by checkpoint and
+    rematerialize), and ``stream_save/load``. An engine provides
+    ``device``, ``n``, ``states_num``, ``emit_num``, ``em_t`` [n, E],
+    ``pi`` [n], ``_model_key``, ``path_supported`` and the compute hooks
+    ``_feed(carry, syms, lengths)``, ``_path_pointers(carry, syms,
+    lengths) → src [T, B, n]`` and ``_backtrace(src, boundary)``. Two
+    engines exist: :class:`FusedStructuredDecoder` (the kernels) and
+    :class:`~spec_viterbi_tpu_torch.models.streaming_xla.PlainStreamDecoder`
+    (the plain structured scan, any operator). Both carries are in +inf
+    space, [n, B], with no lane padding.
+    """
+
+    def stream_begin(self, first_symbols: np.ndarray) -> StreamState:
+        """[B] first symbols → streaming state (device carry [n, B])."""
+        return StreamState(*self._begin(first_symbols))
+
+    def stream_feed(self, state: StreamState, chunk: np.ndarray, valid=None) -> StreamState:
+        """Advance the carry by a [T_c, B] block of symbols.
+
+        ``valid`` (optional, [B] ints): per-lane count of real symbols in
+        this chunk; lane ``i`` advances by ``valid[i]`` steps and then
+        freezes (a finished lane passes 0). Omitted = every lane takes the
+        whole chunk. Symbols past a lane's valid count must still be in the
+        alphabet (pad with 0); they are masked off, never decoded.
+
+        The chunk is padded to the ``quantize_t`` grid and run masked
+        (padding steps freeze the carry), as in the JAX package."""
+        prep = self._prep_stream_chunk(state.b_real, chunk, valid)
+        if prep is None:
+            return state
+        syms, lengths = self._stage(*prep)
+        return StreamState(self._feed(state.carry, syms, lengths), state.b_real)
+
+    def _prep_stream_chunk(self, b_real: int, chunk, valid=None):
+        """Validate a streaming chunk → ([T_c, B] int32, t_c, valid [B] |
+        None), or None for an empty chunk."""
+        chunk = np.asarray(chunk, dtype=np.int32)
+        if chunk.ndim != 2 or chunk.shape[1] != b_real:
+            raise ValueError(f"chunk must be [T_c, {b_real}], got {chunk.shape}")
+        t_c = chunk.shape[0]
+        if t_c == 0:
+            return None
+        validate_obs_seq(chunk.reshape(-1), self.emit_num)
+        if valid is not None:
+            valid = np.asarray(valid, dtype=np.int32)
+            if valid.shape != (b_real,):
+                raise ValueError(f"valid must be [{b_real}], got {valid.shape}")
+            if (valid < 0).any() or (valid > t_c).any():
+                raise ValueError(f"valid counts must be in [0, {t_c}]")
+        return chunk, t_c, valid
+
+    def _stage(self, chunk, t_c: int, valid=None):
+        """T-quantize and upload a validated [t_c, B] chunk → (syms [T_q, B]
+        int32, lengths [B] int32) on the device.
+
+        The masked keep-condition is (step + 1) < lengths, so lane length
+        ``valid_i + 1`` (``t_c + 1`` uniform) runs exactly steps
+        0..valid_i-1: per-lane raggedness and the quantization pad ride
+        the same mask."""
+        t_q = quantize_t(t_c)
+        if t_q != t_c:
+            chunk = np.pad(chunk, ((0, t_q - t_c), (0, 0)))
+        if valid is None:
+            lengths = np.full(chunk.shape[1], t_c + 1, np.int32)
+        else:
+            lengths = (valid + 1).astype(np.int32)
+        return (
+            torch.as_tensor(np.ascontiguousarray(chunk), device=self.device),
+            torch.as_tensor(lengths, device=self.device),
+        )
+
+    def _begin(self, first_symbols) -> tuple[torch.Tensor, int]:
+        """[B] first symbols → (carry [n, B], B)."""
+        syms = validate_obs_seq(first_symbols, self.emit_num)
+        if len(syms) == 0:
+            raise ValueError("cannot stream an empty lane set")
+        s = torch.as_tensor(syms, device=self.device).long()
+        return self.em_t[:, s] + self.pi[:, None], len(syms)
+
+    def _extract(self, carry: torch.Tensor, b_real: int) -> torch.Tensor:
+        return carry.T[:b_real, : self.states_num]
+
+    def _last_state(self, carry: torch.Tensor) -> torch.Tensor:
+        """Per-lane argmin end state (ties → lowest, all-inf → 0), [B] int32."""
+        return torch.argmin(carry, dim=0).to(torch.int32)
+
+    def _path_block(self, carry, syms, lengths, boundary, b_real: int):
+        """One finalize block: rematerialize the chunk's backpointers from
+        its checkpoint and walk them back from ``boundary`` (the states at
+        the chunk's end, position p + T_q).
+
+        Returns (piece [T_q, b_real] int32, the states at positions
+        p+1..p+T_q; entries past the real chunk length repeat the boundary
+        through the identity pad pointers, and the caller slices [:t_c]),
+        and the new boundary rev[0], the states at position p."""
+        src = self._path_pointers(carry, syms, lengths)
+        rev = self._backtrace(src, boundary)  # [T_q, B], positions p..p+T_q-1
+        piece = torch.cat([rev[1:], boundary[None]], dim=0)
+        return piece[:, :b_real], rev[0]
+
+    def stream_scores(self, state: StreamState) -> np.ndarray:
+        """Current [B, states_num] scores; the state stays valid, so peeking
+        mid-stream is allowed."""
+        return self._extract(state.carry, state.b_real).cpu().numpy()
+
+    # ---- streaming exact-path decode: checkpoint + rematerialize ----
+    #
+    # Exact paths need every step's backpointer, but one [T, B, n] pointer
+    # tensor caps T at the memory budget. The path stream instead keeps the
+    # O(n·B) carry at each chunk boundary during the forward pass (scores
+    # only), and ``stream_path_finalize`` re-runs the pointer pass one
+    # chunk at a time in reverse, walking back across chunk boundaries.
+    # Device memory stays O(chunk); total device work is about 2x the
+    # forward pass. Paths equal the one-shot path decode's and the oracle's.
+
+    def _check_path_stream(self) -> None:
+        """Engine veto hook for path streaming (pointer-type limits)."""
+
+    def stream_begin_path(self, first_symbols: np.ndarray) -> PathStreamState:
+        """[B] first symbols → path-streaming state."""
+        self._check_path_stream()
+        return PathStreamState(*self._begin(first_symbols), (), ())
+
+    def stream_feed_path(
+        self, state: PathStreamState, chunk: np.ndarray, valid=None
+    ) -> PathStreamState:
+        """Advance by a [T_c, B] block, checkpointing the pre-chunk carry.
+
+        ``valid``: per-lane real-symbol counts as in :meth:`stream_feed`;
+        frozen steps store identity pointers at finalize, so a ragged
+        lane's path repeats its end state past its true length (the caller
+        slices to ``1 + Σ valid``). The chunk's quantized length must fit
+        the single-call backpointer budget (``path_supported``), since
+        finalize re-runs it as one call."""
+        prep = self._prep_stream_chunk(state.b_real, chunk, valid)
+        if prep is None:
+            return state
+        _, t_c, _ = prep
+        t_q = quantize_t(t_c)
+        if not self.path_supported(t_q + 1, batch=state.b_real):
+            raise ValueError(
+                f"path chunk of {t_c} symbols ({t_q} quantized) exceeds the "
+                f"backpointer budget at {state.b_real} lanes; feed smaller chunks"
+            )
+        syms, lengths = self._stage(*prep)
+        return PathStreamState(
+            self._feed(state.carry, syms, lengths),
+            state.b_real,
+            state.checkpoints + (state.carry,),
+            state.chunks + (StreamChunk(syms, lengths, t_c),),
+        )
+
+    # current [B, states_num] scores of a path stream (peeking)
+    stream_path_scores = stream_scores
+
+    def stream_path_finalize(self, state: PathStreamState) -> tuple[np.ndarray, np.ndarray]:
+        """→ (scores [B, states_num], paths [B, T_total]), T_total = 1 + Σ
+        chunk lengths. The state is not consumed: feeding may continue.
+
+        The score extract, the boundary argmin and every reverse path
+        block are enqueued back to back, then copied to the host."""
+        scores = self._extract(state.carry, state.b_real)
+        boundary = self._last_state(state.carry)
+        pieces = []
+        for rec, ckpt in zip(reversed(state.chunks), reversed(state.checkpoints)):
+            piece, boundary = self._path_block(ckpt, rec.syms, rec.lengths, boundary, state.b_real)
+            pieces.append((piece, rec.t_c))
+        path = np.concatenate(
+            [
+                boundary.cpu().numpy()[None, : state.b_real],  # states at position 0
+                *[p.cpu().numpy()[:t_c] for p, t_c in reversed(pieces)],
+            ],
+            axis=0,
+        )  # [T_total, B]
+        return scores.cpu().numpy(), path.T
+
+    # ---- stream-state persistence --------------------------------------
+
+    def stream_save(self, state, path: str) -> None:
+        """Persist a StreamState or PathStreamState to ``path`` (.npz),
+        published atomically."""
+        payload = {
+            "carry": state.carry.cpu().numpy(),
+            "b_real": np.int64(state.b_real),
+            "model_key": np.bytes_(self._model_key.encode()),
+        }
+        if isinstance(state, PathStreamState):
+            payload["n_chunks"] = np.int64(len(state.chunks))
+            for k, (ck, rec) in enumerate(zip(state.checkpoints, state.chunks)):
+                payload[f"ckpt_{k}"] = ck.cpu().numpy()
+                payload[f"chunk_{k}"] = rec.syms.cpu().numpy()
+                payload[f"tc_{k}"] = np.int64(rec.t_c)
+                payload[f"len_{k}"] = rec.lengths.cpu().numpy()
+        tmp = f"{path}.tmp-{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)  # atomic publish
+
+    def stream_load(self, path: str):
+        """Load a stream state saved by :meth:`stream_save` of an engine of
+        the same kind for the same model; resumes bit for bit (the carry is
+        the whole forward state)."""
+        with np.load(path) as z:
+            if bytes(z["model_key"]).decode() != self._model_key:
+                raise ValueError("stream state was saved for a different model/decoder")
+            b_real = int(z["b_real"])
+
+            def carry(key):
+                c = z[key]
+                if c.shape != (self.n, b_real) or c.dtype != np.float32:
+                    raise ValueError(f"{key}: want float32 ({self.n}, {b_real}), got {c.dtype} {c.shape}")
+                return torch.as_tensor(c, device=self.device)
+
+            state_carry = carry("carry")
+            if "n_chunks" not in z:
+                return StreamState(state_carry, b_real)
+            ckpts, chunks = [], []
+            for k in range(int(z["n_chunks"])):
+                ckpts.append(carry(f"ckpt_{k}"))
+                syms = validate_obs_seq(z[f"chunk_{k}"].reshape(-1), self.emit_num)
+                syms = syms.reshape(-1, b_real)
+                lengths = np.asarray(z[f"len_{k}"], np.int32)
+                if lengths.shape != (b_real,):
+                    raise ValueError(f"len_{k}: want ({b_real},), got {lengths.shape}")
+                chunks.append(StreamChunk(
+                    torch.as_tensor(syms, device=self.device),
+                    torch.as_tensor(lengths, device=self.device),
+                    int(z[f"tc_{k}"]),
+                ))
+            return PathStreamState(state_carry, b_real, tuple(ckpts), tuple(chunks))
+
+
+class FusedStructuredDecoder(_StreamAPI):
+    """Whole-sequence fused decoder for one HMM: batched scores, exact
+    paths, and the streaming protocol on the kernels."""
 
     def __init__(
         self,
@@ -507,6 +906,7 @@ class FusedStructuredDecoder:
             if self._fs_ok
             else None
         )
+        self._model_key = model_key("torch-fused", sop, emissions, pi)
 
     def _scores_core(self, seqs_t, lengths, masked: bool) -> torch.Tensor:
         """State-major fused decode: [T, B] symbols → [n, B] scores."""
@@ -591,3 +991,122 @@ class FusedStructuredDecoder:
                 result[i] = v[row]
                 row += 1
         return result
+
+    # ---- exact paths -----------------------------------------------------
+
+    def _path_core(self, seqs_t, lengths, masked: bool):
+        """State-major fused path decode: [T, B] symbols → (scores [n, B],
+        path [T, B] int32)."""
+        v0 = self.em_t[:, seqs_t[0].long()] + self.pi[:, None]
+        out, src = path(self._masked, self.em, v0, seqs_t[1:], lengths if masked else None)
+        # first index on ties, 0 for an all-inf column: the oracle's argmin
+        last = torch.argmin(out, dim=0).to(torch.int32)
+        rev = backtrace(src, last)  # [T-1, B]
+        return out, torch.cat([rev, last[None]], dim=0)
+
+    def _run_path(self, seqs_t, lengths, masked: bool = True, b_real: int | None = None):
+        """(scores [B, n], paths [B, T] int16) on the device; ``b_real``
+        slices to [b_real, states_num] and [b_real, T]. The path is int16
+        (``path_supported`` guarantees the states fit) and is widened on
+        the host."""
+        scores, paths = self._path_core(seqs_t, lengths, masked)
+        scores, paths = scores.T, paths.T
+        if b_real is not None:
+            scores = scores[:b_real, : self.states_num]
+            paths = paths[:b_real]
+        return scores, paths.to(torch.int16)
+
+    # Device-memory budget of one call's int16 backpointer tensor. The JAX
+    # package's value, a budget sized for a TPU's HBM; kept so that both
+    # packages chunk a batch the same way.
+    MAX_PATH_BYTES = 6 << 30
+
+    def path_supported(self, t_max: int, batch: int = BB) -> bool:
+        """Whether ONE fused path call of this shape fits the budget.
+
+        `decode_path_batch` additionally chunks wide batches into
+        successive budget-sized calls, so a batch is decodable whenever
+        ``path_supported(t_max)`` holds at the default 128-lane block.
+        """
+        if self.n > INT16_STATES:
+            return False
+        b_pad = ((batch + BB - 1) // BB) * BB
+        return max(0, t_max - 1) * self.n * b_pad * 2 <= self.MAX_PATH_BYTES
+
+    def _path_lane_budget(self, t_q: int) -> int:
+        """Max lanes (multiple of 128) whose backpointer tensor fits."""
+        per_lane = max(1, t_q - 1) * self.n * 2
+        return (self.MAX_PATH_BYTES // per_lane) // BB * BB
+
+    def decode_path_batch(
+        self, seqs: list[np.ndarray], bucketed: bool = True
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """[(scores, path)] per sequence, with the oracle's tie rule.
+
+        Bucketing (see `decode_batch`) also shrinks the backpointer tensor:
+        each bucket allocates ``t_q·n·lanes`` instead of every lane paying
+        the global max length, and each bucket is cut into calls of at most
+        ``_path_lane_budget`` lanes. Every call is staged and launched
+        before the first device-to-host copy.
+        """
+        if not seqs:
+            return []
+        if bucketed:
+            lens = [len(s) for s in seqs]
+            plan = bucket_plan(lens, lane_block=BB) or [(list(range(len(seqs))), max(lens))]
+            calls = []
+            for idx, t_q in plan:
+                if not self.path_supported(t_q):
+                    # the quantization overshoot (≤1.5×) may cross the budget
+                    # even when the real lengths fit: run at the real length
+                    t_q = max(lens[i] for i in idx)
+                    if not self.path_supported(t_q):
+                        raise ValueError(
+                            f"path decode of length {t_q} exceeds the "
+                            f"backpointer budget even at {BB} lanes; use "
+                            f"the per-sequence path decode"
+                        )
+                step = max(BB, self._path_lane_budget(t_q))
+                calls += [(idx[i : i + step], t_q) for i in range(0, len(idx), step)]
+        else:
+            t_max = max(len(s) for s in seqs)
+            if not self.path_supported(t_max, batch=len(seqs)):
+                # refuse before any launch: the one whole-batch pointer
+                # tensor would not fit the budget
+                raise ValueError(
+                    f"whole-batch path decode ({len(seqs)} lanes × {t_max} "
+                    f"steps) exceeds the backpointer budget; use bucketed=True"
+                )
+            calls = [(list(range(len(seqs))), t_max)]
+        # a blocking upload waits for the stream, so stage every call first
+        staged = [self.prepare([seqs[i] for i in idx], t_pad=t_q) for idx, t_q in calls]
+        outs = [
+            self._run_path(st, ln, masked=masked, b_real=len(idx))
+            for (idx, _), (st, ln, masked) in zip(calls, staged)
+        ]
+        result: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(seqs)
+        for (idx, _), (scores, paths) in zip(calls, outs):
+            scores = scores.cpu().numpy()
+            paths = paths.cpu().numpy()
+            for row, i in enumerate(idx):
+                result[i] = (scores[row], paths[row, : len(seqs[i])].astype(np.int32))
+        return result
+
+    # ---- the stream engine hooks (see _StreamAPI) ------------------------
+
+    def _check_path_stream(self) -> None:
+        if self.n > INT16_STATES:
+            raise ValueError("path streaming needs int16-addressable states")
+
+    def _feed(self, carry, syms, lengths):
+        # One masked B1 launch; the kernel stops each lane at lengths[b] - 1.
+        # Path streams use the same feed: B1 is exact f32 like B3, so the
+        # checkpoints equal the carries B3 re-runs from, and the JAX
+        # package's separate exact-emission feed for paths is not needed.
+        return scores_masked(self._masked, self.em, carry, syms, lengths)
+
+    def _path_pointers(self, carry, syms, lengths):
+        return path(self._masked, self.em, carry, syms, lengths)[1]
+
+    def _backtrace(self, src, boundary):
+        return backtrace(src, boundary)

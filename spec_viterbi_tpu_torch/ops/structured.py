@@ -193,6 +193,92 @@ def structured_mv_batch(
     return u
 
 
+# source index of a row that no finite candidate reached yet
+_NO_SOURCE = np.iinfo(np.int32).max
+
+
+def structured_mv_argmin(
+    op: StructuredOperator, arrs: OperatorTensors, v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched structured matvec plus the winning source state per output.
+
+    ``v`` [n, B] state-major → ``(u [n, B] f32, src [n, B] int64)``; the
+    batch dimension written out takes the place of the JAX package's
+    ``vmap`` of its single-lane version. Tie rule, a lexicographic min over
+    ``(value, source)`` among finite candidates: the lowest source index
+    wins a tie, a tie whose value is infinite never adopts a source, and a
+    row that no finite candidate reaches points to 0 (as ``argmin`` over an
+    all-inf row does). It is a total order, so the order in which the
+    components are taken does not matter.
+    """
+    diag_vals, row_vals, col_vals, res_src, res_dst, res_vals = arrs
+    n, b = v.shape
+    rows = torch.arange(n, device=v.device)[:, None]
+    u = torch.full_like(v, float("inf"))
+    src = torch.full((n, b), _NO_SOURCE, dtype=torch.int64, device=v.device)
+
+    def take(u, src, cand, cand_src):
+        better = (cand < u) | ((cand == u) & (cand_src < src) & torch.isfinite(cand))
+        return torch.where(better, cand, u), torch.where(better, cand_src, src)
+
+    for k, d in enumerate(op.diag_offsets):
+        # wrap rows hold +inf in diag_vals, so they never adopt a source
+        cand = diag_vals[k][:, None] + torch.roll(v, d, dims=0)
+        u, src = take(u, src, cand, rows - d)
+    for k, s in enumerate(op.row_idx):
+        u, src = take(u, src, row_vals[k][:, None] + v[s][None, :], torch.full_like(src, s))
+    if op.col_idx:
+        # argmin over the f32-rounded sums, as the oracle forms a_t + v: the
+        # lowest index among the equal minima
+        s_mat = col_vals[:, :, None] + v[None, :, :]  # [C, n, B]
+        cu = s_mat.amin(dim=1)  # [C, B]
+        cs = torch.where(s_mat == cu[:, None, :], rows[None], n).amin(dim=1)
+        ci = list(op.col_idx)
+        u[ci], src[ci] = take(u[ci], src[ci], cu, cs)
+    for z in range(op.residual_nnz):
+        # the residual entries one at a time, under the same rule
+        s_, d_ = int(op.res_src[z]), int(op.res_dst[z])
+        cand = res_vals[z] + v[s_]
+        u[d_], src[d_] = take(u[d_], src[d_], cand, torch.full_like(src[d_], s_))
+    src = torch.where(src == _NO_SOURCE, 0, src)
+    return u, src
+
+
+def structured_path_batch(
+    op: StructuredOperator,
+    arrs: OperatorTensors,
+    em_t: torch.Tensor,
+    v0: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None,
+    ptr_dtype: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The masked scan over :func:`structured_mv_argmin`.
+
+    Advances ``v0`` [n, B] through ``obs`` [T-1, B] like
+    :func:`structured_scores_batch` and returns ``(carry [n, B],
+    src [T-1, B, n])``: ``src[k, b, i]`` is the state at step ``k`` from
+    which lane ``b`` reached state ``i`` at step ``k + 1``, stored as
+    ``ptr_dtype``. A lane past its length keeps its carry and writes
+    identity pointers (``src[k, b, i] = i``), so a backtrace through its
+    padding stays put. ``lengths=None`` runs every step.
+    """
+    n, b = v0.shape
+    src_all = torch.empty((obs.shape[0], b, n), dtype=ptr_dtype, device=v0.device)
+    ident = torch.arange(n, device=v0.device)[:, None]
+    v = v0
+    for k in range(obs.shape[0]):
+        u, src = structured_mv_argmin(op, arrs, v)
+        v_new = em_t[:, obs[k].long()] + u
+        if lengths is not None:
+            keep = ((k + 1) < lengths)[None, :]
+            v_new = torch.where(keep, v_new, v)
+            src = torch.where(keep, src, ident)
+        src_all[k] = src.T
+        v = v_new
+    return v, src_all
+
+
 def structured_scores_batch(
     op: StructuredOperator,
     arrs: OperatorTensors,

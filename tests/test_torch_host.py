@@ -19,6 +19,7 @@ import spec_viterbi_tpu.hmm as ref_hmm
 from spec_viterbi_tpu.io import chmm as ref_chmm
 from spec_viterbi_tpu.io import ess as ref_ess
 from spec_viterbi_tpu.io import generators as ref_gen
+from spec_viterbi_tpu.models import oracle as ref_oracle
 from spec_viterbi_tpu.ops import fused_pallas as ref_fused
 from spec_viterbi_tpu.ops.structured import StructuredOperator as RefOperator
 from spec_viterbi_tpu.utils import batching as ref_batching
@@ -31,6 +32,7 @@ from spec_viterbi_tpu_torch.convert import (
 from spec_viterbi_tpu_torch.io import chmm as port_chmm
 from spec_viterbi_tpu_torch.io import ess as port_ess
 from spec_viterbi_tpu_torch.io import generators as port_gen
+from spec_viterbi_tpu_torch.models import oracle as port_oracle
 from spec_viterbi_tpu_torch.ops import fused as port_fused
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.utils import batching as port_batching
@@ -133,6 +135,25 @@ def test_chmm_roundtrip_and_operator_match(tmp_path, name, model):
     assert ref_fused._plan_uniform_rows(ref_sop) == port_fused._plan_uniform_rows(port_sop)
 
 
+@pytest.mark.parametrize("name,model", _models())
+def test_oracles_match(name, model):
+    """The copied numpy oracles against the originals, scores and paths,
+    T = 1 and longer sequences."""
+    rng = np.random.default_rng(len(name))
+    port_hmm_obj = hmm_from_reference(model)
+    for t in (1, 2, 30):
+        seq = rng.integers(0, model.emit_num, size=t).astype(np.int32)
+        want_sc, want_pa = ref_oracle.viterbi_path_oracle(model, seq)
+        got_sc, got_pa = port_oracle.viterbi_path_oracle(port_hmm_obj, seq)
+        assert got_sc.dtype == want_sc.dtype and got_pa.dtype == want_pa.dtype
+        np.testing.assert_array_equal(got_sc, want_sc)
+        np.testing.assert_array_equal(got_pa, want_pa)
+        np.testing.assert_array_equal(
+            port_oracle.viterbi_scores_oracle(port_hmm_obj, seq),
+            ref_oracle.viterbi_scores_oracle(model, seq),
+        )
+
+
 def test_ess_roundtrip_match(tmp_path):
     seqs = port_gen.generate_random_sequences(5, 40, seed=3)
     seqs += [np.array([7], np.int32), np.arange(20, dtype=np.int32)]
@@ -205,7 +226,8 @@ def test_profile_generator_is_seeded():
 def test_import_loads_no_jax():
     code = (
         "import sys, spec_viterbi_tpu_torch, spec_viterbi_tpu_torch.ops.fused, "
-        "spec_viterbi_tpu_torch.convert, spec_viterbi_tpu_torch.io.generators\n"
+        "spec_viterbi_tpu_torch.convert, spec_viterbi_tpu_torch.io.generators, "
+        "spec_viterbi_tpu_torch.models.streaming_xla\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'spec_viterbi_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -1,4 +1,4 @@
-"""The CUDA scores kernels against their plain versions, on a card.
+"""The CUDA kernels against their plain versions, on a card.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only the port is installed: on the machine with the card,
@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_scores_oracle
+from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_path_oracle, viterbi_scores_oracle
 from spec_viterbi_tpu_torch.hmm import HMM, to_modified_prob_np
-from spec_viterbi_tpu_torch.io.generators import generate_profile_hmm
+from spec_viterbi_tpu_torch.io.generators import generate_profile_hmm, generate_tie_heavy_hmm
 from spec_viterbi_tpu_torch.ops import fused
-from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+from spec_viterbi_tpu_torch.ops.structured import StructuredOperator, structured_mv_argmin
 
 torch.set_num_threads(1)
 
@@ -57,6 +57,41 @@ def _models():
     ]
 
 
+def _path_models():
+    return _models() + [pytest.param(generate_tie_heavy_hmm(300, seed=0), id="tie_heavy")]
+
+
+def _negative_zero_model(states=40):
+    """A dense column into the last state and a dense row out of state 0,
+    every transition p = 1 (cost -0.0): a carry holding -0.0 at a low
+    state and +0.0 at a higher one makes the column's argmin a tie between
+    a -0.0 and a +0.0 candidate."""
+    last = states - 1
+    pairs = sorted({(0, j) for j in range(states)} | {(i, last) for i in range(states)}
+                   | {(i, i + 1) for i in range(1, states - 1)})
+    return HMM(
+        states_num=states,
+        emit_num=2,
+        trans_rows=np.array([k[0] for k in pairs], np.int64),
+        trans_cols=np.array([k[1] for k in pairs], np.int64),
+        trans_probs=to_modified_prob_np(np.ones(len(pairs))),
+        emissions=to_modified_prob_np(np.ones((2, states))),
+        start_probabilities_cols=np.array([0], np.int64),
+        start_probabilities=to_modified_prob_np(np.array([1.0])),
+    )
+
+
+def _negative_zero_carry(n):
+    """[n, 2] carries of 1.0: lane 0 holds -0.0 at state 3 and +0.0 at
+    state 7, lane 1 +0.0 at state 1 and -0.0 at state 3. The dense
+    column's argmin must be 3 and 1."""
+    v = np.ones((n, 2), np.float32)
+    v[3] = -0.0
+    v[7, 0] = 0.0
+    v[1, 1] = 0.0
+    return v
+
+
 def _decoder(hmm, device):
     sop = StructuredOperator.from_hmm(hmm)
     return fused.FusedStructuredDecoder(
@@ -76,6 +111,43 @@ def test_plain_versions_match_oracle(hmm):
         seqs = _seqs(rng, lengths, hmm.emit_num)
         for got, s in zip(fd.decode_batch(seqs), seqs):
             np.testing.assert_array_equal(got, viterbi_scores_oracle(hmm, s))
+
+
+@pytest.mark.parametrize("hmm", _path_models())
+def test_plain_path_versions_match_oracle(hmm):
+    """path_plain and backtrace_plain, through decode_path_batch, against
+    viterbi_path_oracle: uniform (unmasked), ragged and dead-symbol
+    batches."""
+    fd = _decoder(hmm, "cpu")
+    rng = np.random.default_rng(4)
+    for lengths in ([13] * 4, [1, 5, 20, 9, 2]):
+        # the last symbol is dead in the tie-heavy model
+        seqs = _seqs(rng, lengths, hmm.emit_num - 1)
+        seqs[-1][-1] = hmm.emit_num - 1
+        for (sc, pa), s in zip(fd.decode_path_batch(seqs), seqs):
+            want_sc, want_pa = viterbi_path_oracle(hmm, s)
+            np.testing.assert_array_equal(sc, want_sc)
+            np.testing.assert_array_equal(pa, want_pa)
+
+
+def test_negative_zero_ties_resolve_by_index():
+    """A p = 1 transition costs -0.0; its tie with a +0.0 candidate goes to
+    the lower source index, in the argmin step, the path and the oracle."""
+    hmm = _negative_zero_model()
+    sop = StructuredOperator.from_hmm(hmm)
+    assert sop.col_idx == (hmm.states_num - 1,) and sop.row_idx == (0,)
+    assert np.signbit(sop.col_vals[0, 5])  # the cost is -0.0
+    v = _negative_zero_carry(sop.n)
+    u, src = structured_mv_argmin(sop, sop.to("cpu"), torch.as_tensor(v))
+    last = hmm.states_num - 1
+    assert src[last].tolist() == [3, 1] and u[last].tolist() == [0.0, 0.0]
+    a_t = hmm.transposed_transition_matrix()
+    assert [np.argmin(a_t[last] + v[: hmm.states_num, b]) for b in (0, 1)] == [3, 1]
+    seq = np.array([0, 1, 0, 0, 1], np.int32)
+    sc, pa = _decoder(hmm, "cpu").decode_path_batch([seq])[0]
+    want_sc, want_pa = viterbi_path_oracle(hmm, seq)
+    np.testing.assert_array_equal(sc, want_sc)
+    np.testing.assert_array_equal(pa, want_pa)
 
 
 @pytest.fixture
@@ -121,9 +193,9 @@ def test_decoder_goes_through_kernels(cuda_device):
     ragged = _seqs(rng, [3, 30, 17], 20)
     fused.reset_launches()
     out = dec.run_batch(dec.prepare_batch(uniform))
-    assert fused.launches == {"scores_masked": 0, "scores_fs": 1}
+    assert fused.launches == {"scores_masked": 0, "scores_fs": 1, "path": 0, "backtrace": 0}
     got = dec.decode_batch(ragged)
-    assert fused.launches == {"scores_masked": 1, "scores_fs": 1}
+    assert fused.launches == {"scores_masked": 1, "scores_fs": 1, "path": 0, "backtrace": 0}
     out = out.cpu().numpy()
     for i, s in enumerate(uniform):
         np.testing.assert_array_equal(out[i, : hmm.states_num], viterbi_scores_oracle(hmm, s))
@@ -142,3 +214,112 @@ def test_kernel_wrappers_check_inputs(cuda_device):
         fused.scores_masked(fd._masked, fd.em, v0.double(), st[1:], ln)
     with pytest.raises(ValueError, match="contiguous"):
         fused.scores_masked(fd._masked, fd.em, v0.T.contiguous().T, st[1:], ln)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hmm", _path_models())
+@pytest.mark.parametrize("lanes", [1, 37, 300])
+def test_path_kernels_equal_plain_on_card(cuda_device, hmm, lanes):
+    """svt_path against path_plain (carry and backpointers, masked and
+    unmasked) and svt_backtrace against backtrace_plain on the same card
+    tensors; the path decode through them against the oracle."""
+    fd = _decoder(hmm, cuda_device)
+    rng = np.random.default_rng(lanes)
+    dead = hmm.emit_num - 1
+    for lengths in (rng.integers(1, 64, size=lanes), [40] * lanes):
+        seqs = _seqs(rng, lengths, hmm.emit_num)
+        st, ln, _ = fd.prepare(seqs)
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        obs = st[1:]
+        for lens in (ln, None):
+            out, src = fused.path(fd._masked, fd.em, v0, obs, lens)
+            p_out, p_src = fused.path_plain(fd._masked, fd.em_t, v0, obs, lens)
+            torch.cuda.synchronize()
+            assert torch.equal(out, p_out)
+            assert torch.equal(src, p_src)
+            last = torch.argmin(out, dim=0).to(torch.int32)
+            rev = fused.backtrace(src, last)
+            torch.cuda.synchronize()
+            assert torch.equal(rev, fused.backtrace_plain(src, last))
+            assert torch.equal(out, fused.scores_masked(fd._masked, fd.em, v0, obs, lens))
+    seqs = _seqs(rng, rng.integers(1, 64, size=lanes), hmm.emit_num)
+    seqs[0][-1] = dead
+    for (sc, pa), s in zip(fd.decode_path_batch(seqs), seqs[:5]):
+        want_sc, want_pa = viterbi_path_oracle(hmm, s)
+        np.testing.assert_array_equal(sc, want_sc)
+        np.testing.assert_array_equal(pa, want_pa)
+
+
+@pytest.mark.cuda
+def test_negative_zero_ties_on_card(cuda_device):
+    hmm = _negative_zero_model()
+    fd = _decoder(hmm, cuda_device)
+    v = torch.as_tensor(_negative_zero_carry(fd.n), device=cuda_device)
+    obs = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    out, src = fused.path(fd._masked, fd.em, v, obs, None)
+    p_out, p_src = fused.path_plain(fd._masked, fd.em_t, v, obs, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, p_out) and torch.equal(src, p_src)
+    assert src[0, :, hmm.states_num - 1].tolist() == [3, 1]
+
+
+@pytest.mark.cuda
+def test_argmin_takes_first_index_on_card(cuda_device):
+    """The path flow's end state is torch.argmin over the carry: the first
+    index on ties (-0.0 and +0.0 included) and 0 for an all-inf lane, as
+    np.argmin."""
+    inf = float("inf")
+    x = torch.tensor(
+        [[inf, 3.0, 1.0, 1.0], [inf, 2.0, -0.0, 0.0], [inf, 2.0, 0.0, -0.0], [inf, 5.0, -0.0, 1.0]],
+        device=cuda_device,
+    ).repeat(1000, 1)
+    got = torch.argmin(x, dim=0).cpu().numpy()
+    np.testing.assert_array_equal(got, np.argmin(x.cpu().numpy(), axis=0))
+    assert got.tolist() == [0, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_decoder_path_flow_goes_through_kernels(cuda_device):
+    hmm = generate_profile_hmm(126, seed=2)
+    dec = ViterbiDecoder(hmm, mode="structured", device=cuda_device)
+    rng = np.random.default_rng(5)
+    uniform = _seqs(rng, [30] * 8, 20)
+    ragged = _seqs(rng, [3, 30, 17, 1], 20)
+    fused.reset_launches()
+    got = dec.decode_path_batch(uniform) + dec.decode_path_batch(ragged)
+    assert fused.launches["path"] == 2 and fused.launches["backtrace"] == 2
+    for (sc, pa), s in zip(got, uniform + ragged):
+        want_sc, want_pa = viterbi_path_oracle(hmm, s)
+        np.testing.assert_array_equal(sc, want_sc)
+        np.testing.assert_array_equal(pa, want_pa)
+    sc, pa = dec.decode_path(ragged[1])
+    np.testing.assert_array_equal(pa, got[9][1])
+    np.testing.assert_array_equal(sc, got[9][0])
+
+    eng = dec.streaming()
+    assert eng is dec._fused
+    block = np.stack(uniform, axis=1)
+    fused.reset_launches()
+    st = eng.stream_begin_path(block[0])
+    for a, b in ((1, 12), (12, 30)):
+        st = eng.stream_feed_path(st, block[a:b])
+    scores, paths = eng.stream_path_finalize(st)
+    assert fused.launches == {"scores_masked": 2, "scores_fs": 0, "path": 2, "backtrace": 2}
+    for i, (sc, pa) in enumerate(got[:8]):
+        np.testing.assert_array_equal(scores[i], sc)
+        np.testing.assert_array_equal(paths[i], pa)
+
+
+@pytest.mark.cuda
+def test_path_wrappers_check_inputs(cuda_device):
+    fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
+    st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 5], 20))
+    v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+    with pytest.raises(ValueError, match="obs"):
+        fused.path(fd._masked, fd.em, v0, st[1:].long(), ln)
+    _, src = fused.path(fd._masked, fd.em, v0, st[1:], ln)
+    last = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="src"):
+        fused.backtrace(src.int(), last)
+    with pytest.raises(ValueError, match="boundary"):
+        fused.backtrace(src, last.long())
