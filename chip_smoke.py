@@ -39,9 +39,27 @@ exits non-zero:
     the ragged set through the path stream with per-lane valid counts and
     a save/load round trip in the middle (paths and scores equal to
     ``decode_path_batch``'s);
-12. time kernel and plain version: the scores kernels at the uniform shape,
-    the path kernels at one 256-lane call (median of 5; the plain path scan
-    on fewer repeats, as its line says).
+12. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
+    states, offsets (1, 3), 4 symbols) on a local group of 4 shards, chunk
+    16: ``FusedTPDecoder.decode_batch`` and ``decode_path_batch`` on a
+    uniform (512 × 3,500) and a ragged set (the lengths of step 4), with
+    the launch counts read around each call (219 window launches a call,
+    one backtrace a path call); scores, paths and the global pointer
+    tensor bit-equal to the unsharded kernels';
+13. ``tp_kernel_vs_plain``: both window kernels against their plain
+    versions on the first 4 chunks, uniform and ragged, and
+    ``decode_batch_emulated(check_path_kernel=True)`` on 128 lanes;
+14. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
+    a prefix and on a seeded tie-heavy banded model: bit-equal;
+15. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
+    bit-equal to the single-device decode;
+16. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
+    most 4), bit-equal to the local group; with one card it says so;
+17. time kernel and plain version: the window kernels (the whole TP
+    decode, and kernel vs plain on the first 4 chunks, beside the
+    unsharded kernels on the same model and lanes), the scores kernels at
+    the uniform shape, the path kernels at one 256-lane call (median of 5;
+    the plain path scan on fewer repeats, as its line says).
 
 The line before the card's line is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -65,7 +83,19 @@ T_LEN = 3500
 REPEATS = 5
 PLAIN_PATH_REPEATS = 2  # the plain path scan takes seconds per call
 STREAM_CHUNKS = (999, 1500, 1000)  # after the first symbol: 3,500 in all
-NO_PATH_LAUNCHES = {"path": 0, "backtrace": 0}
+NO_OTHER_LAUNCHES = {"path": 0, "backtrace": 0, "scores_window": 0, "path_window": 0}
+ZERO_LAUNCHES = {"scores_masked": 0, "scores_fs": 0, **NO_OTHER_LAUNCHES}
+# the state-sharded decode's banded model and schedule
+TP_STATES = 2432
+TP_OFFSETS = (1, 3)
+TP_SYMBOLS = 4
+TP_SHARDS = 4
+TP_CHUNK = 16
+TP_PATH_LANES = 256  # the pointer comparison and the path timing
+TP_PLAIN_CHUNKS = 4  # chunks of the kernel-vs-plain checks and timings
+TP_EMULATED_LANES = 128
+DP_PATH_LANES = 128
+SPAWN_SECONDS = 600
 
 
 def check(ok: bool, what: str) -> None:
@@ -111,6 +141,300 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_file: str,
+                  seed: int) -> None:
+    """One NCCL rank of ``tp_dist``: the banded model's TP decode on a
+    distributed group, card ``rank``; rank 0 writes what it decoded."""
+    import torch
+
+    from spec_viterbi_tpu_torch.io import generate_banded_hmm
+    from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+    from spec_viterbi_tpu_torch.parallel import FusedTPDecoder, init_distributed, make_group
+
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    init_distributed(f"file://{init_file}", world, rank, device=dev)
+    try:
+        hmm = generate_banded_hmm(TP_STATES, TP_OFFSETS, TP_SYMBOLS, seed=seed)
+        sop = StructuredOperator.from_hmm(hmm)
+        tp = FusedTPDecoder(sop, hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n),
+                            make_group(dev), chunk=TP_CHUNK)
+        seqs = list(np.load(data_file))
+        secs = []
+        for _ in range(2):  # the second round is timed warm (NCCL set up)
+            torch.distributed.barrier(device_ids=[rank])
+            t0 = time.perf_counter()
+            scores = np.stack(tp.decode_batch(seqs))
+            secs.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got = tp.decode_path_batch(seqs)
+            secs.append(time.perf_counter() - t0)
+        if rank == 0:
+            np.savez(out_file, scores=scores, path_scores=np.stack([sc for sc, _ in got]),
+                     paths=np.stack([p for _, p in got]), seconds=np.array(secs[2:]))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_dist(seed: int, uniform: list, scores, paths, tmp: str) -> None:
+    """``tp_dist``: TP scores and paths on min(4, cards) NCCL ranks, one
+    card each, bit-equal to the local group's (``scores``, ``paths``)."""
+    import multiprocessing as mp
+
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("tp_dist", ran=False, why=f"{count} card")
+        return
+    world = min(4, count)
+    torch.cuda.empty_cache()
+    np.save(f"{tmp}/uniform.npy", np.stack(uniform))
+    ctx = mp.get_context("spawn")
+    procs = [
+        ctx.Process(target=_tp_dist_rank, args=(r, world, f"{tmp}/rendezvous", f"{tmp}/uniform.npy",
+                                                f"{tmp}/tp_dist.npz", seed))
+        for r in range(world)
+    ]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SPAWN_SECONDS
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    check(not hung, f"tp_dist ranks {hung} finished within {SPAWN_SECONDS} s")
+    check([p.exitcode for p in procs] == [0] * world, "every tp_dist rank exited 0")
+    with np.load(f"{tmp}/tp_dist.npz") as z:
+        check(np.array_equal(z["scores"], np.stack(scores)), "distributed TP scores == local group")
+        check(np.array_equal(z["path_scores"], np.stack([sc for sc, _ in paths])),
+              "distributed TP path scores == local group")
+        check(np.array_equal(z["paths"], np.stack([p for _, p in paths])),
+              "distributed TP paths == local group")
+        warm = z["seconds"].tolist()
+    phase("tp_dist", ran=True, ranks=world, seconds=time.perf_counter() - t0, lanes=len(uniform),
+          bit_equal=True, decode_batch_seconds=warm[0], decode_path_batch_seconds=warm[1])
+
+
+def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> dict:
+    """The phases ``tp_main``, ``tp_kernel_vs_plain``, ``tp_oracle``,
+    ``dp``, ``tp_dist`` and the window kernels' ``time`` lines. ``fd``,
+    ``ragged`` and ``scores_r`` are the corpus model's fused decoder, ragged
+    set and ``decode_batch`` scores. Returns the window kernels' entries
+    of the ``kernels`` line."""
+    import torch
+
+    from spec_viterbi_tpu_torch import viterbi_path_oracle
+    from spec_viterbi_tpu_torch.io import generate_banded_hmm, generate_tie_heavy_banded_hmm
+    from spec_viterbi_tpu_torch.ops import _build, fused
+    from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+    from spec_viterbi_tpu_torch.parallel import (
+        DATA_AXIS,
+        FusedTPDecoder,
+        decode_batch_dp_fused,
+        decode_path_batch_dp_fused,
+        fused_tp_supported,
+        init_distributed,
+        make_group,
+    )
+    from spec_viterbi_tpu_torch.parallel import fused_tp
+
+    dev = torch.device("cuda")
+
+    def banded(model, shards):
+        sop = StructuredOperator.from_hmm(model)
+        em, pi = model.emission_matrix(pad_to=sop.n), model.start_vector(pad_to=sop.n)
+        tp = FusedTPDecoder(sop, em, pi, make_group(dev, shards), chunk=TP_CHUNK)
+        return sop, tp, fused.FusedStructuredDecoder(sop, em, pi, device=dev)
+
+    # ---- tp_main: the TP decode, with the launch counts read around each call
+    hmm = generate_banded_hmm(TP_STATES, TP_OFFSETS, TP_SYMBOLS, seed=seed)
+    sop, tp, ref = banded(hmm, TP_SHARDS)
+    check(sorted(sop.diag_offsets) == sorted(TP_OFFSETS) and not sop.row_idx and not sop.col_idx
+          and sop.residual_nnz == 0 and fused_tp_supported(sop, TP_SHARDS, TP_CHUNK),
+          "the banded model is in the chunked-halo TP class")
+    check((tp.block, tp.h_lo, tp.h_hi, tp.n_win) == (608, 48, 0, 656), "window geometry")
+    rng = np.random.default_rng(seed + 2)
+    uniform = [rng.integers(0, hmm.emit_num, size=T_LEN).astype(np.int32) for _ in range(LANES)]
+    tp_ragged = [rng.integers(0, hmm.emit_num, size=int(t)).astype(np.int32) for t in lengths]
+    chunks = -(-(T_LEN - 1) // TP_CHUNK)
+    secs, counts = {}, {}
+
+    def driven(name, fn, seqs, want):
+        fused.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(seqs)
+        secs[name] = time.perf_counter() - t0
+        counts[name] = dict(fused.launches)
+        check(counts[name] == {**ZERO_LAUNCHES, **want}, f"{name} launches {counts[name]}")
+        return out
+
+    scores_u = driven("uniform_decode_batch", tp.decode_batch, uniform, {"scores_window": chunks})
+    scores_tr = driven("ragged_decode_batch", tp.decode_batch, tp_ragged, {"scores_window": chunks})
+    path_want = {"path_window": chunks, "backtrace": 1}
+    paths_u = driven("uniform_decode_path_batch", tp.decode_path_batch, uniform, path_want)
+    paths_tr = driven("ragged_decode_path_batch", tp.decode_path_batch, tp_ragged, path_want)
+    for seqs, got, got_p in ((uniform, scores_u, paths_u), (tp_ragged, scores_tr, paths_tr)):
+        want = ref.decode_batch(seqs)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "TP scores == unsharded svt_scores_masked")
+        want_p = ref.decode_path_batch(seqs)
+        check(all(np.array_equal(sc, wsc) and np.array_equal(p, wp)
+                  for (sc, p), (wsc, wp) in zip(got_p, want_p)),
+              "TP paths and scores == unsharded decode_path_batch")
+        check(all(np.array_equal(sc, g) for (sc, _), g in zip(got_p, got)), "TP path scores == TP scores")
+    # the global pointer tensor of one TP path call against svt_path's on
+    # the same lanes (each 4.36 GB; the 8.7 GB tensor of the 512-lane
+    # calls above is freed)
+    st, ln = tp._stage(uniform[:TP_PATH_LANES])
+    carry, bp = tp._run_local(st, ln, path=True)
+    v0 = ref.em_t[:, st[0].long()] + ref.pi[:, None]
+    out, src = fused.path(ref._masked, ref.em, v0, st[1:], None)
+    check(torch.equal(carry, out) and torch.equal(bp, src),
+          f"TP global pointers == svt_path ({TP_PATH_LANES} x {T_LEN - 1} x {tp.n})")
+    del carry, bp, out, src
+    phase("tp_main", states=hmm.states_num, offsets=list(TP_OFFSETS), shards=TP_SHARDS,
+          chunk=TP_CHUNK, n_win=tp.n_win, chunks=chunks, seconds=secs, launches=counts,
+          pointer_bytes=(T_LEN - 1) * LANES * tp.n * 2,
+          peak_allocated_bytes=torch.cuda.max_memory_allocated())
+
+    # ---- tp_kernel_vs_plain: the first chunks, chained ------------------
+    t = tp._local
+    errs = {"scores_window": 0.0, "path_window": 0.0}
+    span = TP_PLAIN_CHUNKS * TP_CHUNK
+    short = [s[: 1 + len(s) % span] for s in tp_ragged]  # lanes stop inside the span
+
+    def first_chunks(seqs):
+        st, ln = tp._stage(seqs)
+        v = tp._em_t[:, st[0].long()] + tp._pi[:, None]
+        return v, [(st[1:][k0:k1], len_c) for k0, k1, len_c in tp._chunks(st.shape[0] - 1, ln)][
+            :TP_PLAIN_CHUNKS]
+
+    for name, seqs in (("uniform", uniform), ("ragged", short)):
+        v, cks = first_chunks(seqs[:LANES])
+        for obs_c, len_c in cks:
+            k = fused_tp.scores_window(t, v, obs_c, len_c)
+            same, err = equal_with_err(k, fused_tp.scores_window_plain(t, v, obs_c, len_c))
+            check(same, f"scores window kernel == plain, {name}")
+            errs["scores_window"] = max(errs["scores_window"], err)
+            v = k
+        v, cks = first_chunks(seqs[:TP_PATH_LANES])
+        for obs_c, len_c in cks:
+            k, k_bp = fused_tp.path_window(t, v, obs_c, len_c)
+            p, p_bp = fused_tp.path_window_plain(t, v, obs_c, len_c)
+            same, err = equal_with_err(k, p)
+            check(same and torch.equal(k_bp, p_bp), f"path window kernel == plain, {name}")
+            errs["path_window"] = max(errs["path_window"], err)
+            v = k
+    emulated = tp.decode_batch_emulated(uniform[:TP_EMULATED_LANES], check_path_kernel=True)
+    check(all(np.array_equal(g, w) for g, w in zip(emulated, scores_u)),
+          "decode_batch_emulated(check_path_kernel=True) == decode_batch")
+    phase("tp_kernel_vs_plain", chunks=TP_PLAIN_CHUNKS, scores_lanes=LANES,
+          path_lanes=TP_PATH_LANES, emulated_lanes=TP_EMULATED_LANES,
+          **{f"{k}_max_abs_err": e for k, e in errs.items()})
+
+    # ---- tp_oracle: against viterbi_path_oracle ---------------------------
+    prefix = [s[:64] for s in uniform[:4]]
+    tie = generate_tie_heavy_banded_hmm(512, (-1, 1), TP_SYMBOLS, seed=seed)
+    _, tie_tp, _ = banded(tie, TP_SHARDS)
+    tie_rng = np.random.default_rng(seed + 3)
+    tie_seqs = [tie_rng.integers(0, tie.emit_num - 1, size=n).astype(np.int32)
+                for n in (1, 2, 16, 17, 18, 63, 64, 50)]
+    tie_seqs[-1][20] = tie.emit_num - 1  # the dead symbol
+    for model, dec, seqs in ((hmm, tp, prefix), (tie, tie_tp, tie_seqs)):
+        for s, sc, (psc, p) in zip(seqs, dec.decode_batch(seqs), dec.decode_path_batch(seqs)):
+            want_sc, want_p = viterbi_path_oracle(model, s)
+            check(np.array_equal(sc, want_sc) and np.array_equal(psc, want_sc)
+                  and np.array_equal(p, want_p),
+                  f"TP == oracle ({model.states_num} states, {len(s)} symbols)")
+    phase("tp_oracle", lanes=len(prefix) + len(tie_seqs), bit_equal=True)
+
+    # ---- dp: the fused DP entry points on a world-size-1 NCCL group ------
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            group = make_group(dev, axis=DATA_AXIS)
+            fused.reset_launches()
+            t0 = time.perf_counter()
+            dp_scores = decode_batch_dp_fused(fd, ragged, group)
+            dp_paths = decode_path_batch_dp_fused(fd, ragged[:DP_PATH_LANES], group)
+            dp_secs = time.perf_counter() - t0
+            dp_counts = dict(fused.launches)
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    check(dp_counts == {**ZERO_LAUNCHES, "scores_masked": 1, "path": 1, "backtrace": 1},
+          f"dp launches {dp_counts}")
+    check(all(np.array_equal(g, w) for g, w in zip(dp_scores, scores_r)),
+          "DP scores == single-device decode_batch")
+    want_p = fd.decode_path_batch(ragged[:DP_PATH_LANES])
+    check(all(np.array_equal(sc, wsc) and np.array_equal(p, wp)
+              for (sc, p), (wsc, wp) in zip(dp_paths, want_p)),
+          "DP paths == single-device decode_path_batch")
+    phase("dp", world=1, backend=backend, lanes=len(ragged), path_lanes=DP_PATH_LANES,
+          seconds=dp_secs, launches=dp_counts)
+
+    # ---- tp_dist: NCCL ranks, one card each ------------------------------
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tp_dist(seed, uniform, scores_u, paths_u, tmp)
+
+    # ---- times: the whole TP decode; kernel vs plain on the first chunks;
+    # the unsharded kernels on the same model and lanes
+    st, ln = tp._stage(uniform)
+    st_p, ln_p = tp._stage(uniform[:TP_PATH_LANES])
+    v0 = ref.em_t[:, st[0].long()] + ref.pi[:, None]
+    v0_p = ref.em_t[:, st_p[0].long()] + ref.pi[:, None]
+    v, cks = first_chunks(uniform)
+    v_p, cks_p = first_chunks(uniform[:TP_PATH_LANES])
+
+    def chained(step, v, cks):
+        for obs_c, len_c in cks:
+            v = step(t, v, obs_c, len_c)
+
+    steps = T_LEN - 1
+    span_steps = sum(o.shape[0] for o, _ in cks)
+    rows = {
+        "scores_window": (
+            LANES,
+            median_ms(lambda: tp._run_local(st, ln, path=False)),
+            median_ms(lambda: chained(fused_tp.scores_window, v, cks)),
+            median_ms(lambda: chained(fused_tp.scores_window_plain, v, cks)),
+            "scores_masked",
+            median_ms(lambda: fused.scores_masked(ref._masked, ref.em, v0, st[1:], None)),
+        ),
+        "path_window": (
+            TP_PATH_LANES,
+            median_ms(lambda: tp._path_core(st_p, ln_p)),
+            median_ms(lambda: chained(lambda *a: fused_tp.path_window(*a)[0], v_p, cks_p)),
+            median_ms(lambda: chained(lambda *a: fused_tp.path_window_plain(*a)[0], v_p, cks_p)),
+            "path",
+            median_ms(lambda: fused.path(ref._masked, ref.em, v0_p, st_p[1:], None)),
+        ),
+    }
+    kernels = []
+    for name, (lanes, decode_ms, ms, plain_ms, unsharded, unsharded_ms) in rows.items():
+        phase("time", kernel=name, card=card, lanes=lanes, shards=TP_SHARDS, steps=steps,
+              decode_ms=decode_ms, decode_us_per_step=decode_ms * 1e3 / steps,
+              span_steps=span_steps, ms=ms, us_per_step=ms * 1e3 / span_steps,
+              plain_ms=plain_ms, plain_us_per_step=plain_ms * 1e3 / span_steps,
+              unsharded_kernel=unsharded, unsharded_ms=unsharded_ms,
+              unsharded_us_per_step=unsharded_ms * 1e3 / steps)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/window.cu",
+            "replaces": "spec_viterbi_tpu/parallel/fused_tp.py:" + ("198" if name == "scores_window" else "302"),
+            "launches": sum(c[name] for c in counts.values()), "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    return kernels
 
 
 def main() -> int:
@@ -181,7 +505,7 @@ def main() -> int:
     scores_u = dec.run_batch(handle)
     torch.cuda.synchronize()
     secs["uniform_run_batch"] = time.perf_counter() - t0
-    check(fused.launches == {"scores_masked": 0, "scores_fs": 1, **NO_PATH_LAUNCHES},
+    check(fused.launches == {"scores_masked": 0, "scores_fs": 1, **NO_OTHER_LAUNCHES},
           "uniform batch ran the FS kernel")
     t0 = time.perf_counter()
     scores_r = dec.decode_batch(ragged)
@@ -237,7 +561,7 @@ def main() -> int:
     check(all(np.array_equal(g, w) for g, w in zip(plain_got, want)), "plain path == oracle")
     fused.reset_launches()
     kern_got = dec.decode_batch(small) + dec.decode_batch(small_ragged)
-    check(fused.launches == {"scores_masked": 1, "scores_fs": 1, **NO_PATH_LAUNCHES},
+    check(fused.launches == {"scores_masked": 1, "scores_fs": 1, **NO_OTHER_LAUNCHES},
           "prefix check ran both kernels")
     check(all(np.array_equal(g, w) for g, w in zip(kern_got, want)), "kernels == oracle")
     phase("oracle", lanes=len(want), bit_equal=True)
@@ -345,7 +669,7 @@ def main() -> int:
         pos += w
     got = eng.stream_scores(st)
     ssecs["scores_stream"] = time.perf_counter() - t0
-    check(fused.launches == {"scores_masked": len(STREAM_CHUNKS), "scores_fs": 0, **NO_PATH_LAUNCHES},
+    check(fused.launches == {"scores_masked": len(STREAM_CHUNKS), "scores_fs": 0, **NO_OTHER_LAUNCHES},
           "one masked launch per feed")
     check(np.array_equal(got, u_np[:, :n_real]), "stream scores == run_batch scores (masked == FS)")
     stream_counts = {"scores": dict(fused.launches)}
@@ -380,6 +704,8 @@ def main() -> int:
               "path stream == decode_path_batch")
     stream_counts["path"] = dict(fused.launches)
     phase("stream", seconds=ssecs, launches=stream_counts, chunks=list(STREAM_CHUNKS))
+
+    window_kernels = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r)
 
     # ---- times at the uniform shape ------------------------------------
     steps = obs.shape[0]
@@ -433,6 +759,7 @@ def main() -> int:
          "replaces": "spec_viterbi_tpu/ops/fused_pallas.py:695",
          "launches": path_counts["backtrace"], "max_abs_err": err_bt,
          "ms": timed["backtrace"][0], "plain_ms": timed["backtrace"][1]},
+        *window_kernels,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -36,48 +36,7 @@
 //   TPU kernel picked the pointer through a one-hot min over all states
 //   because a TPU has no per-lane gather; here it is one load.
 
-#include <climits>
-
 #include "common.cuh"
-
-// Adopt candidate (c, cs) if it precedes (u, s) under the tie rule.
-__device__ __forceinline__ void take(float& u, int& s, float c, int cs) {
-  if (c < u || (c == u && cs < s && c < INFINITY)) {
-    u = c;
-    s = cs;
-  }
-}
-
-// (value, index) lexicographic min without the finiteness guard: used
-// inside one dense column's argmin, whose +inf result is never adopted.
-//
-// The values are compared as floats, never as raw bits. A p = 1 transition
-// costs -0.0 (to_modified_prob_np), and -0.0 == +0.0 must tie and resolve
-// by index. Packing a raw float and an index into one integer key would
-// order the -0.0 bit pattern above +inf; a packed key needs the float
-// canonicalised first (x + 0.0f turns -0.0 into +0.0).
-__device__ __forceinline__ void pair_min(float& v, int& i, float ov, int oi) {
-  if (ov < v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-// (value, source) of row i over the diagonal and dense-row candidates.
-__device__ __forceinline__ void bulk_pair(const ScoresDesc& desc, const float* __restrict__ dv,
-                                          const float* __restrict__ rv, const float* cur, int n,
-                                          int i, float& u, int& s) {
-  u = INFINITY;
-  s = INT_MAX;
-  for (int q = 0; q < desc.n_diag; ++q) {
-    const int j = i - desc.diag_off[q];
-    if (j >= 0 && j < n) take(u, s, dv[q * n + i] + cur[j], j);
-  }
-  for (int r = 0; r < desc.n_row; ++r) {
-    const int k = desc.row_idx[r];
-    take(u, s, rv[r * n + i] + cur[k], k);
-  }
-}
 
 template <int C_CAP>
 __global__ void __launch_bounds__(SVT_THREADS)
@@ -93,11 +52,7 @@ path_kernel(const ScoresDesc desc, const float* __restrict__ dv, const float* __
   const int b = blockIdx.x;
   const int n = desc.n, n_col = desc.n_col;
   for (int i = tid; i < n; i += SVT_THREADS) carry[i] = v0[(size_t)i * batch + b];
-  int my_steps = steps;
-  if (lengths != nullptr) {  // lane b freezes once step t+1 reaches its length
-    const int l = lengths[b] - 1;
-    my_steps = l < 0 ? 0 : (l < steps ? l : steps);
-  }
+  const int my_steps = lane_steps(lengths, b, steps);
   __syncthreads();
 
   float* cur = carry;
@@ -115,7 +70,7 @@ path_kernel(const ScoresDesc desc, const float* __restrict__ dv, const float* __
     for (int i = tid; i < n; i += SVT_THREADS) {
       float u;
       int s;
-      bulk_pair(desc, dv, rv, cur, n, i, u, s);
+      bulk_pair(desc, dv, rv, n, cur, n, i, u, s);
       nxt[i] = em_row[i] + u;
       bp_row[i] = (short)(u < INFINITY ? s : 0);
       const float vi = cur[i];
@@ -161,7 +116,7 @@ path_kernel(const ScoresDesc desc, const float* __restrict__ dv, const float* __
         const int r = desc.sp_row[sp];
         float u;
         int s;
-        bulk_pair(desc, dv, rv, cur, n, r, u, s);
+        bulk_pair(desc, dv, rv, n, cur, n, r, u, s);
         for (int c = 0; c < n_col; ++c) {
           if (desc.col_idx[c] != r) continue;
           float cmin = red_v[0][c];

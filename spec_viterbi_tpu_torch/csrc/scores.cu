@@ -51,28 +51,6 @@ struct FsDesc {
   float cand_val[MAX_CANDS];
 };
 
-__device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// min over the diagonal and dense-row candidates of row i. The descriptor
-// is read from the kernel parameter (the constant bank): a copy in shared
-// memory could alias the carry, and the compiler would then reload it for
-// every state.
-__device__ __forceinline__ float bulk_candidate(const ScoresDesc& desc, const float* __restrict__ dv,
-                                                const float* __restrict__ rv, const float* cur,
-                                                int n, int i) {
-  float a = INFINITY;
-  for (int q = 0; q < desc.n_diag; ++q) {
-    const int j = i - desc.diag_off[q];
-    if (j >= 0 && j < n) a = fminf(a, dv[q * n + i] + cur[j]);
-  }
-  for (int r = 0; r < desc.n_row; ++r) a = fminf(a, rv[r * n + i] + cur[desc.row_idx[r]]);
-  return a;
-}
-
 // C_CAP bounds the dense columns whose partial mins each thread keeps in
 // registers; the entry point picks the smallest instantiation that fits.
 template <int C_CAP>
@@ -88,11 +66,7 @@ scores_masked_kernel(const ScoresDesc desc, const float* __restrict__ dv,
   const int b = blockIdx.x;
   const int n = desc.n, n_col = desc.n_col;
   for (int i = tid; i < n; i += SVT_THREADS) carry[i] = v0[(size_t)i * batch + b];
-  int my_steps = steps;
-  if (lengths != nullptr) {  // lane b freezes once step t+1 reaches its length
-    const int l = lengths[b] - 1;
-    my_steps = l < 0 ? 0 : (l < steps ? l : steps);
-  }
+  const int my_steps = lane_steps(lengths, b, steps);
   __syncthreads();
 
   float* cur = carry;
@@ -103,7 +77,7 @@ scores_masked_kernel(const ScoresDesc desc, const float* __restrict__ dv,
 #pragma unroll
     for (int c = 0; c < C_CAP; ++c) cpart[c] = INFINITY;
     for (int i = tid; i < n; i += SVT_THREADS) {
-      nxt[i] = em_row[i] + bulk_candidate(desc, dv, rv, cur, n, i);
+      nxt[i] = em_row[i] + bulk_candidate(desc, dv, rv, n, cur, n, i);
       const float vi = cur[i];
 #pragma unroll
       for (int c = 0; c < C_CAP; ++c)
@@ -123,7 +97,7 @@ scores_masked_kernel(const ScoresDesc desc, const float* __restrict__ dv,
     if (warp == 0) {
       for (int s = lane; s < desc.n_special; s += 32) {
         const int r = desc.sp_row[s];
-        float a = bulk_candidate(desc, dv, rv, cur, n, r);
+        float a = bulk_candidate(desc, dv, rv, n, cur, n, r);
         for (int c = 0; c < n_col; ++c) {
           if (desc.col_idx[c] != r) continue;
           for (int w = 0; w < SVT_WARPS; ++w) a = fminf(a, red[w][c]);

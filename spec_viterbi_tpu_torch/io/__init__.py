@@ -3,13 +3,17 @@
 from spec_viterbi_tpu_torch.io.chmm import read_hmm, write_chmm
 from spec_viterbi_tpu_torch.io.ess import read_emit_seq, write_ess
 from spec_viterbi_tpu_torch.io.generators import (
+    generate_banded_hmm,
     generate_profile_hmm,
     generate_random_hmm,
     generate_random_sequences,
+    generate_tie_heavy_banded_hmm,
     generate_tie_heavy_hmm,
 )
 
 __all__ = [
+    "generate_banded_hmm",
+    "generate_tie_heavy_banded_hmm",
     "generate_tie_heavy_hmm",
     "read_hmm",
     "write_chmm",

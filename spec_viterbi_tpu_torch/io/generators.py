@@ -3,9 +3,11 @@
 ``generate_random_hmm`` and ``generate_random_sequences`` are copied from
 ``spec_viterbi_tpu/io/generators.py``. ``generate_profile_hmm`` is new: it
 stands in for the Pfam-derived ``.chmm`` corpus, which is not part of the
-repository, in tests and in the smoke run. ``generate_tie_heavy_hmm`` is
-new too: a model whose costs are small integers, to hold the path tie
-rule. Both are test data, not decoder features.
+repository, in tests and in the smoke run. ``generate_tie_heavy_hmm`` and
+``generate_tie_heavy_banded_hmm`` are new too: models whose costs are
+small integers, to hold the path tie rule. ``generate_banded_hmm`` draws
+what ``tests/test_fused_tp.py::banded_hmm`` draws, for the state-sharded
+decode. All are test data, not decoder features.
 """
 
 from __future__ import annotations
@@ -187,3 +189,54 @@ def generate_tie_heavy_hmm(states: int = 300, emit_num: int = 5, seed: int = 0) 
     )
     hmm.validate()
     return hmm
+
+
+def generate_banded_hmm(
+    n: int = 256, offsets: tuple[int, ...] = (1,), emit_num: int = 4, seed: int = 0
+) -> HMM:
+    """Seeded banded HMM: transitions only along the diagonals ``offsets``
+    (state ``i`` → ``i + d``), the operator class of the state-sharded
+    decode. Draws the same numbers in the same order as the JAX package's
+    test model (``tests/test_fused_tp.py::banded_hmm``), so both packages
+    decode the identical HMM."""
+    rng = np.random.default_rng(seed)
+    rows, cols, probs = [], [], []
+    for d in offsets:
+        src = np.arange(max(0, -d), n - max(0, d))
+        rows.append(src)
+        cols.append(src + d)
+        probs.append(rng.uniform(0.05, 1.0, size=src.shape[0]))
+    hmm = HMM(
+        states_num=n,
+        emit_num=emit_num,
+        trans_rows=np.concatenate(rows).astype(np.int64),
+        trans_cols=np.concatenate(cols).astype(np.int64),
+        trans_probs=to_modified_prob_np(np.concatenate(probs)),
+        emissions=to_modified_prob_np(rng.uniform(0.05, 1.0, size=(emit_num, n))),
+        start_probabilities_cols=np.arange(8, dtype=np.int64),
+        start_probabilities=to_modified_prob_np(np.full(8, 1 / 8)),
+    )
+    hmm.validate()
+    return hmm
+
+
+def generate_tie_heavy_banded_hmm(
+    n: int = 256, offsets: tuple[int, ...] = (-1, 1), emit_num: int = 4, seed: int = 0
+) -> HMM:
+    """Seeded banded HMM on which equal-cost paths are common.
+
+    Test and smoke data for the path tie rule of the state-sharded decode.
+    The diagonals of :func:`generate_banded_hmm`, with every probability
+    drawn from {1, 0.5, 0.25}, so every transition costs -0.0, 1 or 2;
+    emissions from {1, 0.5, 0.25, 0}, and the last symbol is dead (no
+    state emits it), so a sequence through it drives every score to +inf.
+    """
+    rng = np.random.default_rng(seed)
+    levels = np.array([1.0, 0.5, 0.25, 0.0])
+    base = generate_banded_hmm(n, offsets, emit_num, seed)
+    emissions = rng.choice(levels, size=(emit_num, n), p=[0.35, 0.3, 0.25, 0.1])
+    emissions[-1] = 0.0  # the dead symbol
+    base.trans_probs = to_modified_prob_np(rng.choice(levels[:3], size=base.trans_num))
+    base.emissions = np.ascontiguousarray(to_modified_prob_np(emissions), dtype=MOD_PROB_DTYPE)
+    base.validate()
+    return base

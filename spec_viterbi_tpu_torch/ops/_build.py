@@ -2,7 +2,8 @@
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, on first use and never on import, into
-``spec_viterbi_tpu_torch/.build/`` (listed in ``.gitignore``). The library
+``spec_viterbi_tpu_torch/.build/`` (listed in ``.gitignore``): one
+``nvcc`` per source, all started together, then one link. The library
 name carries a hash of the sources and flags, so an edited source builds
 anew. A build failure raises.
 
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / ".build"
 # no --use_fast_math: flush-to-zero and approximate adds break bit-equality
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # caps of the descriptors, as #defined in csrc/common.cuh
@@ -102,16 +103,36 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or nothing
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        units = [src for src in sources if src.suffix == ".cu"]
+        objs = [work / f"{src.stem}.o" for src in units]
+        jobs = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(units, objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in jobs
+        ]
+        failed = []
+        for cmd, proc in zip(jobs, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = work / "lib.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -132,6 +153,10 @@ def library() -> ctypes.CDLL:
     lib.svt_path.restype = i32
     lib.svt_backtrace.argtypes = [vp] * 3 + [i32, i32, i32, vp]
     lib.svt_backtrace.restype = i32
+    lib.svt_scores_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 + [i32] * 3 + [vp]
+    lib.svt_scores_window.restype = i32
+    lib.svt_path_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 5 + [i32] * 5 + [vp]
+    lib.svt_path_window.restype = i32
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):
         if lib.svt_desc_size(which) != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout differs from csrc/")

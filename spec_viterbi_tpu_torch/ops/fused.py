@@ -66,8 +66,12 @@ MAX_COL_EXTRAS = 8
 INT16_STATES = np.iinfo(np.int16).max
 
 # Launch counts of the kernels; a wrapper adds one where it launches its
-# kernel and nowhere else.
-launches = {"scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 0}
+# kernel and nowhere else; the window kernels of parallel/fused_tp.py
+# count here too.
+launches = {
+    "scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 0,
+    "scores_window": 0, "path_window": 0,
+}
 
 
 def reset_launches() -> None:
@@ -576,6 +580,37 @@ def _expand_symbols(flat, off, last, t_total: int) -> torch.Tensor:
     return flat[idx]
 
 
+def stage_batch(seqs: list[np.ndarray], emit_num: int, device: torch.device,
+                t_pad: int | None = None):
+    """Validate a batch and upload it once → (seqs_t [T, B] int32,
+    lengths [B] int32, masked) on ``device``; T is at least 2 and at least
+    ``t_pad``. ``masked`` is False only when every lane runs every step."""
+    seqs = [validate_obs_seq(s, emit_num) for s in seqs]
+    if any(len(s) == 0 for s in seqs):
+        # the recurrence consumes seq[0] before any masking
+        raise ValueError("cannot decode an empty sequence")
+    t_min = max(2, t_pad or 2)
+    b = len(seqs)
+    t_total = max(t_min, max(len(s) for s in seqs))
+    lengths = np.array([len(s) for s in seqs], dtype=np.int32)
+    off = np.zeros(b, dtype=np.int64)
+    np.cumsum(lengths[: b - 1], out=off[1:])
+    last = off + lengths - 1
+    seqs_t = _expand_symbols(
+        torch.as_tensor(np.concatenate(seqs), device=device),
+        torch.as_tensor(off, device=device),
+        torch.as_tensor(last, device=device),
+        t_total,
+    )
+    # mask when lengths differ OR when padding added timesteps every
+    # lane would otherwise run (uniform length-1 batch, t_pad overshoot)
+    masked = (
+        len({len(s) for s in seqs}) > 1
+        or max(len(s) for s in seqs) < t_min
+    )
+    return seqs_t, torch.as_tensor(lengths, device=device), masked
+
+
 class StreamState(NamedTuple):
     """Resumable streaming-decode state: the device carry and the lane count."""
 
@@ -928,31 +963,7 @@ class FusedStructuredDecoder(_StreamAPI):
         A uniform-length batch runs unmasked. ``t_pad`` forces the time
         dimension to a fixed (e.g. bucket-quantized) length.
         """
-        seqs = [validate_obs_seq(s, self.emit_num) for s in seqs]
-        if any(len(s) == 0 for s in seqs):
-            # the recurrence consumes seq[0] before any masking
-            raise ValueError("cannot decode an empty sequence")
-        t_min = max(2, t_pad or 2)
-        b = len(seqs)
-        t_total = max(t_min, max(len(s) for s in seqs))
-        lengths = np.array([len(s) for s in seqs], dtype=np.int32)
-        off = np.zeros(b, dtype=np.int64)
-        np.cumsum(lengths[: b - 1], out=off[1:])
-        last = off + lengths - 1
-        dev = self.device
-        seqs_t = _expand_symbols(
-            torch.as_tensor(np.concatenate(seqs), device=dev),
-            torch.as_tensor(off, device=dev),
-            torch.as_tensor(last, device=dev),
-            t_total,
-        )
-        # mask when lengths differ OR when padding added timesteps every
-        # lane would otherwise run (uniform length-1 batch, t_pad overshoot)
-        masked = (
-            len({len(s) for s in seqs}) > 1
-            or max(len(s) for s in seqs) < t_min
-        )
-        return seqs_t, torch.as_tensor(lengths, device=dev), masked
+        return stage_batch(seqs, self.emit_num, self.device, t_pad)
 
     def run_prepared(self, handle) -> torch.Tensor:
         """Fused decode of a prepared batch; returns [B, n] device scores."""

@@ -252,23 +252,28 @@ def structured_path_batch(
     obs: torch.Tensor,
     lengths: torch.Tensor | None,
     ptr_dtype: torch.dtype,
+    base: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The masked scan over :func:`structured_mv_argmin`.
 
     Advances ``v0`` [n, B] through ``obs`` [T-1, B] like
     :func:`structured_scores_batch` and returns ``(carry [n, B],
     src [T-1, B, n])``: ``src[k, b, i]`` is the state at step ``k`` from
-    which lane ``b`` reached state ``i`` at step ``k + 1``, stored as
-    ``ptr_dtype``. A lane past its length keeps its carry and writes
-    identity pointers (``src[k, b, i] = i``), so a backtrace through its
-    padding stays put. ``lengths=None`` runs every step.
+    which lane ``b`` reached state ``i`` at step ``k + 1``, plus ``base``,
+    stored as ``ptr_dtype``. A row no finite candidate reaches stores 0. A
+    lane past its length keeps its carry and writes identity pointers
+    (``src[k, b, i] = i + base``), so a backtrace through its padding stays
+    put. ``lengths=None`` runs every step. ``base`` maps the rows of a
+    state window to global states (``parallel/fused_tp.py``).
     """
     n, b = v0.shape
     src_all = torch.empty((obs.shape[0], b, n), dtype=ptr_dtype, device=v0.device)
-    ident = torch.arange(n, device=v0.device)[:, None]
+    ident = torch.arange(n, device=v0.device)[:, None] + base
     v = v0
     for k in range(obs.shape[0]):
         u, src = structured_mv_argmin(op, arrs, v)
+        if base:
+            src = torch.where(torch.isinf(u), 0, src + base)
         v_new = em_t[:, obs[k].long()] + u
         if lengths is not None:
             keep = ((k + 1) < lengths)[None, :]

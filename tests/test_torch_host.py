@@ -212,6 +212,30 @@ def test_profile_model_structure_in_both_packages():
     assert port._row_plan == jax_dec._row_plan
 
 
+@pytest.mark.parametrize(
+    "n,offsets,emit,seed", [(256, (1,), 4, 0), (128, (2,), 4, 3), (256, (-1, 1), 6, 7), (64, (0, 2, -3), 3, 11)]
+)
+def test_banded_generator_matches_jax_test_model(n, offsets, emit, seed):
+    """generate_banded_hmm draws what tests/test_fused_tp.py::banded_hmm
+    draws, so both packages decode the identical banded HMM."""
+    from test_fused_tp import banded_hmm
+
+    assert_hmm_equal(
+        port_gen.generate_banded_hmm(n, offsets, emit, seed),
+        banded_hmm(n=n, offsets=offsets, emit=emit, seed=seed),
+    )
+
+
+def test_tie_heavy_banded_generator():
+    hmm = port_gen.generate_tie_heavy_banded_hmm(128, (-1, 1), 4, seed=2)
+    sop = StructuredOperator.from_hmm(hmm)
+    assert sop.diag_offsets and not sop.row_idx and not sop.col_idx and sop.residual_nnz == 0
+    assert set(np.unique(hmm.trans_probs).tolist()) <= {0.0, 1.0, 2.0}
+    assert np.signbit(hmm.trans_probs).any()  # p = 1 costs -0.0
+    assert np.isinf(hmm.emissions[-1]).all()  # the dead symbol
+    assert_hmm_equal(hmm, port_gen.generate_tie_heavy_banded_hmm(128, (-1, 1), 4, seed=2))
+
+
 def test_profile_generator_is_seeded():
     a = port_gen.generate_profile_hmm(40, seed=3)
     b = port_gen.generate_profile_hmm(40, seed=3)
@@ -227,7 +251,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys, spec_viterbi_tpu_torch, spec_viterbi_tpu_torch.ops.fused, "
         "spec_viterbi_tpu_torch.convert, spec_viterbi_tpu_torch.io.generators, "
-        "spec_viterbi_tpu_torch.models.streaming_xla\n"
+        "spec_viterbi_tpu_torch.models.streaming_xla, spec_viterbi_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'spec_viterbi_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -13,11 +13,20 @@ import torch
 
 from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_path_oracle, viterbi_scores_oracle
 from spec_viterbi_tpu_torch.hmm import HMM, to_modified_prob_np
-from spec_viterbi_tpu_torch.io.generators import generate_profile_hmm, generate_tie_heavy_hmm
+from spec_viterbi_tpu_torch.io.generators import (
+    generate_banded_hmm,
+    generate_profile_hmm,
+    generate_tie_heavy_banded_hmm,
+    generate_tie_heavy_hmm,
+)
 from spec_viterbi_tpu_torch.ops import fused
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator, structured_mv_argmin
+from spec_viterbi_tpu_torch.parallel import FusedTPDecoder
+from spec_viterbi_tpu_torch.parallel import fused_tp
 
 torch.set_num_threads(1)
+
+NO_WINDOW = {"scores_window": 0, "path_window": 0}
 
 
 def _structured_model(rng, states, emit, offsets, residual):
@@ -193,9 +202,9 @@ def test_decoder_goes_through_kernels(cuda_device):
     ragged = _seqs(rng, [3, 30, 17], 20)
     fused.reset_launches()
     out = dec.run_batch(dec.prepare_batch(uniform))
-    assert fused.launches == {"scores_masked": 0, "scores_fs": 1, "path": 0, "backtrace": 0}
+    assert fused.launches == {"scores_masked": 0, "scores_fs": 1, "path": 0, "backtrace": 0, **NO_WINDOW}
     got = dec.decode_batch(ragged)
-    assert fused.launches == {"scores_masked": 1, "scores_fs": 1, "path": 0, "backtrace": 0}
+    assert fused.launches == {"scores_masked": 1, "scores_fs": 1, "path": 0, "backtrace": 0, **NO_WINDOW}
     out = out.cpu().numpy()
     for i, s in enumerate(uniform):
         np.testing.assert_array_equal(out[i, : hmm.states_num], viterbi_scores_oracle(hmm, s))
@@ -304,7 +313,7 @@ def test_decoder_path_flow_goes_through_kernels(cuda_device):
     for a, b in ((1, 12), (12, 30)):
         st = eng.stream_feed_path(st, block[a:b])
     scores, paths = eng.stream_path_finalize(st)
-    assert fused.launches == {"scores_masked": 2, "scores_fs": 0, "path": 2, "backtrace": 2}
+    assert fused.launches == {"scores_masked": 2, "scores_fs": 0, "path": 2, "backtrace": 2, **NO_WINDOW}
     for i, (sc, pa) in enumerate(got[:8]):
         np.testing.assert_array_equal(scores[i], sc)
         np.testing.assert_array_equal(paths[i], pa)
@@ -323,3 +332,103 @@ def test_path_wrappers_check_inputs(cuda_device):
         fused.backtrace(src.int(), last)
     with pytest.raises(ValueError, match="boundary"):
         fused.backtrace(src, last.long())
+
+
+def _tp_decoder(hmm, shards, chunk, device):
+    sop = StructuredOperator.from_hmm(hmm)
+    return FusedTPDecoder(
+        sop, hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n),
+        None, chunk=chunk, shards=shards, device=device,
+    )
+
+
+def _window_cases(tp, rng, lanes):
+    """(tables, v_in, obs, lengths) of the first chunk of a ragged and a
+    uniform batch: the local form (all windows in one launch, global
+    pointers) and the rank form of every shard (one window, window-local
+    pointers)."""
+    for lengths in (rng.integers(1, 3 * tp.chunk, size=lanes), [3 * tp.chunk] * lanes):
+        st, ln = tp._stage(_seqs(rng, lengths, tp.emit_num))
+        v = tp._em_t[:, st[0].long()] + tp._pi[:, None]
+        k0, k1, len_c = tp._chunks(st.shape[0] - 1, ln)[0]
+        obs = st[1:][k0:k1]
+        yield tp._local, v, obs, len_c
+        for r in range(tp.shards):
+            t = fused_tp.WindowTables.build(
+                tp.sop.diag_offsets, tp._local.dv, tp._em, tp.block, tp.h_lo, tp.h_hi,
+                1, op_row0=r * tp.block, ptr_base=0,
+            )
+            yield t, v[r * tp.block : r * tp.block + tp.n_win].contiguous(), obs, len_c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "offsets,chunk,shards,tie",
+    [((1,), 8, 2, False), ((-1, 1), 4, 4, False), ((0, 2), 4, 4, False), ((-1, 1), 8, 2, True)],
+)
+def test_window_kernels_equal_plain_on_card(cuda_device, offsets, chunk, shards, tie):
+    """svt_scores_window and svt_path_window against their plain versions
+    (carry and pointers) on the same card tensors, local and rank forms,
+    uniform and ragged; then the TP decode through them against the
+    oracle, with its launch counts."""
+    gen = generate_tie_heavy_banded_hmm if tie else generate_banded_hmm
+    hmm = gen(256, offsets, 4, seed=shards)
+    tp = _tp_decoder(hmm, shards, chunk, cuda_device)
+    rng = np.random.default_rng(shards)
+    for t, v, obs, lens in _window_cases(tp, rng, 37):
+        got = fused_tp.scores_window(t, v, obs, lens)
+        want = fused_tp.scores_window_plain(t, v, obs, lens)
+        out, bp = fused_tp.path_window(t, v, obs, lens)
+        p_out, p_bp = fused_tp.path_window_plain(t, v, obs, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(out, p_out) and torch.equal(bp, p_bp)
+        assert torch.equal(out, got)
+    lengths = [1, 2, chunk, chunk + 1, 2 * chunk, 3 * chunk - 1, 40]
+    seqs = _seqs(rng, lengths, hmm.emit_num - 1)
+    seqs[-1][-1] = hmm.emit_num - 1  # the dead symbol of the tie-heavy model
+    chunks = -(-(max(lengths) - 1) // chunk)
+    fused.reset_launches()
+    scores = tp.decode_batch(seqs)
+    paths = tp.decode_path_batch(seqs)
+    assert fused.launches == {
+        "scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 1,
+        "scores_window": chunks, "path_window": chunks,
+    }
+    for s, sc, (psc, pa) in zip(seqs, scores, paths):
+        want_sc, want_pa = viterbi_path_oracle(hmm, s)
+        np.testing.assert_array_equal(sc, viterbi_scores_oracle(hmm, s))
+        np.testing.assert_array_equal(psc, want_sc)
+        np.testing.assert_array_equal(pa, want_pa)
+    emulated = tp.decode_batch_emulated(seqs, check_path_kernel=True)
+    assert all(np.array_equal(a, b) for a, b in zip(emulated, scores))
+
+
+@pytest.mark.cuda
+def test_window_pointers_equal_unsharded_on_card(cuda_device):
+    """The local form's global pointer tensor equals svt_path's."""
+    hmm = generate_banded_hmm(512, (1, 3), 4, seed=9)
+    tp = _tp_decoder(hmm, 4, 16, cuda_device)
+    fd = _decoder(hmm, cuda_device)
+    seqs = _seqs(np.random.default_rng(9), [70] * 33, 4)
+    st, ln = tp._stage(seqs)
+    carry, bp = tp._run_local(st, ln, path=True)
+    v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+    out, src = fused.path(fd._masked, fd.em, v0, st[1:], None)
+    torch.cuda.synchronize()
+    assert torch.equal(carry, out) and torch.equal(bp, src)
+
+
+@pytest.mark.cuda
+def test_window_wrappers_check_inputs(cuda_device):
+    tp = _tp_decoder(generate_banded_hmm(256, (1,), 4, seed=1), 2, 8, cuda_device)
+    t, v, obs, lens = next(_window_cases(tp, np.random.default_rng(1), 5))
+    with pytest.raises(ValueError, match="obs"):
+        fused_tp.scores_window(t, v, obs.long(), lens)
+    with pytest.raises(ValueError, match="v_in"):
+        fused_tp.scores_window(t, v[1:], obs, lens)
+    with pytest.raises(ValueError, match="out must not"):
+        fused_tp.scores_window(t, v, obs, lens, out=v)
+    with pytest.raises(ValueError, match="bp"):
+        fused_tp.path_window(t, v, obs, lens, bp=torch.empty((1, 5, tp.n), dtype=torch.int16,
+                                                             device=cuda_device))
