@@ -55,22 +55,37 @@ exits non-zero:
     bit-equal to the single-device decode;
 16. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
     most 4), bit-equal to the local group; with one card it says so;
-17. time kernel and plain version: the window kernels (the whole TP
+17. time kernel and plain version of the window kernels (the whole TP
     decode, and kernel vs plain on the first 4 chunks, beside the
-    unsharded kernels on the same model and lanes), the scores kernels at
-    the uniform shape, the path kernels at one 256-lane call (median of 5;
-    the plain path scan on fewer repeats, as its line says).
+    unsharded kernels on the same model and lanes);
+18. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
+    uniform set, with the probe kernels' launch counts read around that
+    run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
+    their drift verdict, the two-symbol step, staged emissions), S2 (the
+    emission-select ladder), S3 (the empty floor at 1, 2 and 4 lanes a
+    CTA; the FS and masked kernels at 128 to 1,024 lanes), S4 (the
+    ablation table);
+    the chain floor of each production kernel's shape; then each probe
+    kernel against its plain version on a 64-step slice, every class,
+    scheme and flag, bit-equal;
+19. time kernel and plain version of the scores kernels at the uniform
+    shape and the path kernels at one 256-lane call (median of 5; the
+    plain path scan on fewer repeats, as its line says); the masked, path
+    and backtrace kernels at each ragged bucket; then ``rank``: per kernel,
+    the sum over one call of its main path of (time - bound), the order
+    in which the kernels lose most against their bounds.
 
-The line before the card's line is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+Every ``kernels`` entry carries its bound (``spec_viterbi_tpu_torch/
+probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
+its bytes over 3.35 TB/s) for the work it was timed on. The line before
+the card's line is that JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -81,6 +96,7 @@ STATES_MATCH = 2405  # + the N and C states: the 2,407-state benchmark model
 LANES = 512
 T_LEN = 3500
 REPEATS = 5
+PROBE_SLICE = 64  # steps of the probe kernels' kernel-vs-plain slice
 PLAIN_PATH_REPEATS = 2  # the plain path scan takes seconds per call
 STREAM_CHUNKS = (999, 1500, 1000)  # after the first symbol: 3,500 in all
 NO_OTHER_LAUNCHES = {"path": 0, "backtrace": 0, "scores_window": 0, "path_window": 0}
@@ -107,14 +123,6 @@ def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
-def card_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return proc.stdout.strip().splitlines()[0]
-
-
 def equal_with_err(a, b) -> tuple[bool, float]:
     """(bit-equal, max |a-b| over the entries finite in both)."""
     import torch
@@ -123,24 +131,6 @@ def equal_with_err(a, b) -> tuple[bool, float]:
     fin = torch.isfinite(a) & torch.isfinite(b)
     err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
     return torch.equal(a, b) and same_inf, err
-
-
-def median_ms(fn, repeats: int = REPEATS) -> float:
-    """Median of ``repeats`` CUDA-event timings of ``fn`` after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_file: str,
@@ -246,6 +236,8 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> dict:
         make_group,
     )
     from spec_viterbi_tpu_torch.parallel import fused_tp
+    from spec_viterbi_tpu_torch.probes import bounds
+    from spec_viterbi_tpu_torch.probes.common import median_ms
 
     dev = torch.device("cuda")
 
@@ -421,18 +413,133 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> dict:
         ),
     }
     kernels = []
+    n_global = tp.h_lo + tp.n + tp.h_hi
     for name, (lanes, decode_ms, ms, plain_ms, unsharded, unsharded_ms) in rows.items():
+        work = bounds.window_scores if name == "scores_window" else bounds.window_path
+        geometry = (len(TP_OFFSETS), tp.n_win, TP_SHARDS, n_global, lanes)
+        bound_ms, bound_by = work(*geometry, span_steps, len(cks), TP_SYMBOLS).bound()
+        decode_bound_ms, decode_bound_by = work(*geometry, steps, chunks, TP_SYMBOLS).bound()
         phase("time", kernel=name, card=card, lanes=lanes, shards=TP_SHARDS, steps=steps,
               decode_ms=decode_ms, decode_us_per_step=decode_ms * 1e3 / steps,
+              decode_bound_ms=decode_bound_ms, decode_bound_by=decode_bound_by,
               span_steps=span_steps, ms=ms, us_per_step=ms * 1e3 / span_steps,
               plain_ms=plain_ms, plain_us_per_step=plain_ms * 1e3 / span_steps,
+              bound_ms=bound_ms, bound_by=bound_by,
               unsharded_kernel=unsharded, unsharded_ms=unsharded_ms,
               unsharded_us_per_step=unsharded_ms * 1e3 / steps)
         kernels.append({
             "name": name, "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/window.cu",
             "replaces": "spec_viterbi_tpu/parallel/fused_tp.py:" + ("198" if name == "scores_window" else "302"),
             "launches": sum(c[name] for c in counts.values()), "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": f"{lanes} lanes x {span_steps} steps, {len(cks)} launches",
+            "decode_launches": chunks, "decode_ms": decode_ms, "decode_bound_ms": decode_bound_ms,
+        })
+    return kernels
+
+
+def probes_phase(seed: int, card: str, hmm, fd, seqs_t) -> list:
+    """``probes``: the H100 probes on the uniform set ``seqs_t`` [T, B] of
+    the corpus model (``hmm``, its fused decoder ``fd``), the launch counts
+    of the probe kernels read around that run, the chain floors, then each
+    probe kernel against its plain version on a 64-step slice. Returns the
+    probe kernels' entries of the ``kernels`` line."""
+    import torch
+
+    from spec_viterbi_tpu_torch.ops import fused, probes
+    from spec_viterbi_tpu_torch.probes import bounds, laneblock, run_all
+    from spec_viterbi_tpu_torch.probes.common import (
+        N_STATES,
+        CorpusBatch,
+        PassInputs,
+        Record,
+        median_ms,
+    )
+
+    dev = torch.device("cuda")
+    rec = Record(card, tag="probes")
+    corpus = CorpusBatch.of(hmm, fd, seqs_t)
+    probes.reset_launches()
+    t0 = time.perf_counter()
+    run_all(rec, dev, seed, corpus=corpus)
+    seconds = time.perf_counter() - t0
+    counts = dict(probes.launches)
+    check(all(c > 0 for c in counts.values()), f"every probe kernel launched: {counts}")
+
+    # the chain floor: the empty step at each production kernel's carry
+    # length and CTA count (window kernels: n_win rows, lanes x shards CTAs)
+    steps = T_LEN - 1
+    n_win = 656  # rows of a TP window (tp_main checks the geometry)
+    laneblock.empty_floor(rec, [
+        ("scores_b512", N_STATES, LANES), ("path_b256", N_STATES, TP_PATH_LANES),
+        ("window_b512", n_win, LANES * TP_SHARDS), ("window_b256", n_win, TP_PATH_LANES * TP_SHARDS),
+    ], steps, seed, dev)
+
+    # each probe kernel against its plain version on a 64-step slice
+    inp = PassInputs.make(N_STATES, LANES, PROBE_SLICE, seed + 5, dev)
+    errs = {"probe_pass": 0.0, "probe_emsel": 0.0, "scores_variant": 0.0}
+    timed = {}
+
+    def held(name, what, kernel, plain, time_it=False):
+        k, p = kernel(), plain()
+        same, err = equal_with_err(k, p)
+        check(same, f"{name} == plain, {what}")
+        errs[name] = max(errs[name], err)
+        if time_it:
+            timed[name] = (what, median_ms(kernel), median_ms(plain))
+
+    cases = [("empty", 0, lpc, sym) for lpc in (1, 2, 4) for sym in (False, True)]
+    cases += [("stream", 4, 1, False), ("neighbour", 4, 1, False), ("colred", 4, 1, False),
+              ("bcast", 4, 1, False), ("emission", 2, 1, False), ("twosym", 0, 1, False)]
+    for cls, p, lpc, sym in cases:
+        obs = inp.obs if (sym or cls in ("emission", "twosym")) else None
+        args = dict(obs=obs, cols=inp.cols, bufs=inp.bufs, tab=inp.tabs if cls == "twosym" else inp.em, p=p)
+        held("probe_pass", f"{cls} p={p} lanes/CTA={lpc}",
+             lambda: probes.probe_pass(cls, inp.v0, PROBE_SLICE, lanes_per_cta=lpc, **args),
+             lambda: probes.probe_pass_plain(cls, inp.v0, PROBE_SLICE, **args),
+             time_it=cls == "twosym")
+    for scheme in probes.EMSEL_SCHEMES:
+        tabs = probes.emsel_tables(inp.em, scheme)
+        held("probe_emsel", f"{scheme} p=2",
+             lambda: probes.probe_emsel(scheme, tabs, inp.v0, inp.obs, PROBE_SLICE, 2),
+             lambda: probes.probe_emsel_plain(tabs, inp.v0, inp.obs, PROBE_SLICE, 2),
+             time_it=scheme == "bf16")
+    obs = corpus.obs[:PROBE_SLICE].contiguous()
+    lens = torch.as_tensor(np.random.default_rng(seed + 6).integers(1, PROBE_SLICE + 2, size=LANES)
+                           .astype(np.int32), device=dev)
+    for name in ("baseline", *probes.VARIANT_FLAGS):
+        t = probes.VariantTables.build(fd._masked, fd.em, probes.variant_flag(name))
+        held("scores_variant", f"{name}, ragged", lambda: probes.scores_variant(t, corpus.v0, obs, lens),
+             lambda: probes.scores_variant_plain(t, corpus.v0, obs, lens), time_it=name == "baseline")
+    check(torch.equal(probes.scores_variant(probes.VariantTables.build(fd._masked, fd.em, 0),
+                                            corpus.v0, corpus.obs, None),
+                      fused.scores_masked(fd._masked, fd.em, corpus.v0, corpus.obs, None)),
+          f"the all-off variant == svt_scores_masked at {LANES} x {steps}")
+    phase("probes", seconds=seconds, launches=counts, slice_steps=PROBE_SLICE,
+          **{f"{k}_max_abs_err": e for k, e in errs.items()})
+
+    sop = fd.sop
+    lane_steps = int((lens - 1).clamp(0, PROBE_SLICE).sum())
+    work = {
+        "probe_pass": bounds.probe_pass("twosym", N_STATES, LANES, PROBE_SLICE, 0),
+        "probe_emsel": bounds.probe_emsel("bf16", N_STATES, LANES, PROBE_SLICE, 2),
+        "scores_variant": bounds.masked_scores(sop.n, len(sop.diag_offsets), len(sop.row_idx),
+                                               len(sop.col_idx), LANES, PROBE_SLICE, lane_steps,
+                                               hmm.emit_num, True),
+    }
+    replaces = {"probe_pass": "scripts/exp_roofline.py:130",
+                "probe_emsel": "scripts/exp_mxu_precision.py:127",
+                "scores_variant": "scripts/exp_kernel_variants.py:34"}
+    kernels = []
+    for name, (what, ms, plain_ms) in timed.items():
+        bound_ms, bound_by = work[name].bound()
+        phase("time", kernel=name, card=card, shape=f"{what}, {LANES} lanes x {PROBE_SLICE} steps",
+              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/probes.cu",
+            "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": f"{what}, {LANES} lanes x {PROBE_SLICE} steps",
         })
     return kernels
 
@@ -461,6 +568,8 @@ def main() -> int:
         write_ess,
     )
     from spec_viterbi_tpu_torch.ops import _build, fused
+    from spec_viterbi_tpu_torch.probes import bounds
+    from spec_viterbi_tpu_torch.probes.common import card_line, median_ms
     from spec_viterbi_tpu_torch.utils.batching import bucket_plan
 
     card = card_line()
@@ -706,9 +815,19 @@ def main() -> int:
     phase("stream", seconds=ssecs, launches=stream_counts, chunks=list(STREAM_CHUNKS))
 
     window_kernels = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r)
+    probe_kernels = probes_phase(args.seed, card, hmm, fd, seqs_t)
 
     # ---- times at the uniform shape ------------------------------------
     steps = obs.shape[0]
+    sop = fd.sop
+    shape = (sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx))
+    bound = {
+        "scores_fs": bounds.fs_scores(sop.n, LANES, steps, hmm.emit_num).bound(),
+        "scores_masked": bounds.masked_scores(*shape, LANES, steps, LANES * steps, hmm.emit_num,
+                                              True).bound(),
+        "path": bounds.path(*shape, half, steps, half * steps, hmm.emit_num, False).bound(),
+        "backtrace": bounds.backtrace(half, steps).bound(),
+    }
     timed = {
         "scores_fs": (
             median_ms(lambda: fused.scores_fs(fd._fs, fd.em, v0, obs)),
@@ -723,7 +842,8 @@ def main() -> int:
         phase("time", kernel=name, card=card, lanes=LANES, steps=steps,
               ms=ms, us_per_step=ms * 1e3 / steps, symbols_per_s=LANES * T_LEN / (ms / 1e3),
               plain_ms=plain_ms, plain_us_per_step=plain_ms * 1e3 / steps,
-              plain_symbols_per_s=LANES * T_LEN / (plain_ms / 1e3))
+              plain_symbols_per_s=LANES * T_LEN / (plain_ms / 1e3),
+              bound_ms=bound[name][0], bound_by=bound[name][1])
     pv0, pobs = path_args
     timed["path"] = (
         median_ms(lambda: fused.path(fd._masked, fd.em, pv0, pobs, None)),
@@ -739,28 +859,68 @@ def main() -> int:
         phase("time", kernel=name, card=card, lanes=half, steps=steps, ms=ms,
               us_per_step=ms * 1e3 / steps, repeats=REPEATS, plain_ms=plain_ms,
               plain_us_per_step=plain_ms * 1e3 / steps,
-              plain_repeats=PLAIN_PATH_REPEATS if name == "path" else REPEATS)
+              plain_repeats=PLAIN_PATH_REPEATS if name == "path" else REPEATS,
+              bound_ms=bound[name][0], bound_by=bound[name][1])
 
-    source = "spec_viterbi_tpu_torch/csrc/scores.cu"
+    # ---- each kernel's loss against its bound on its main path: a uniform
+    # run_batch (FS); a ragged decode_batch (masked, one launch a bucket); a
+    # uniform and a ragged decode_path_batch (path and backtrace, 2 + 4
+    # launches); a TP decode_batch and a 256-lane TP decode_path_batch (219
+    # window launches each; the path decode's time holds its backtrace).
+    # The ragged buckets are timed one by one.
+    per_call = {name: [0, 0.0, 0.0] for name in ("scores_fs", "scores_masked", "path", "backtrace")}
+
+    def add(name, launches, ms, work):
+        per_call[name][0] += launches
+        per_call[name][1] += launches * ms
+        per_call[name][2] += launches * work.bound()[0]
+
+    add("scores_fs", 1, timed["scores_fs"][0], bounds.fs_scores(sop.n, LANES, steps, hmm.emit_num))
+    calls = -(-LANES // max(fused.BB, half))
+    add("path", calls, timed["path"][0], bounds.path(*shape, half, steps, half * steps, hmm.emit_num, False))
+    add("backtrace", calls, timed["backtrace"][0], bounds.backtrace(half, steps))
+    bucket_times = []
+    for idx, t_q in plan:
+        st, ln, _ = fd.prepare([ragged[i] for i in idx], t_pad=t_q)
+        bv0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        b_steps, b_lanes = st.shape[0] - 1, len(idx)
+        lane_steps = int((ln.long() - 1).clamp(0, b_steps).sum())
+        ms_m = median_ms(lambda: fused.scores_masked(fd._masked, fd.em, bv0, st[1:], ln))
+        ms_p = median_ms(lambda: fused.path(fd._masked, fd.em, bv0, st[1:], ln))
+        out, src = fused.path(fd._masked, fd.em, bv0, st[1:], ln)
+        last = torch.argmin(out, dim=0).to(torch.int32)
+        ms_b = median_ms(lambda: fused.backtrace(src, last))
+        del out, src
+        add("scores_masked", 1, ms_m, bounds.masked_scores(*shape, b_lanes, b_steps, lane_steps,
+                                                           hmm.emit_num, True))
+        add("path", 1, ms_p, bounds.path(*shape, b_lanes, b_steps, lane_steps, hmm.emit_num, True))
+        add("backtrace", 1, ms_b, bounds.backtrace(b_lanes, b_steps))
+        bucket_times.append({"lanes": b_lanes, "steps": b_steps, "scores_masked_ms": ms_m,
+                             "path_ms": ms_p, "backtrace_ms": ms_b})
+    phase("time", kernel="ragged_buckets", card=card, buckets=bucket_times)
+    for e in window_kernels:
+        per_call[e["name"]] = [e["decode_launches"], e["decode_ms"], e["decode_bound_ms"]]
+    rank = sorted(((name, n, ms, b, ms - b) for name, (n, ms, b) in per_call.items()),
+                  key=lambda r: -r[4])
+    phase("rank", card=card, by="sum over a main path's launches of (time - bound), ms",
+          order=[{"name": name, "launches": n, "ms": ms, "bound_ms": b, "loss_ms": loss}
+                 for name, n, ms, b, loss in rank])
+
+    entries = (
+        ("scores_fs", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:360", counts, err_fs, LANES),
+        ("scores_masked", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:203", counts, err_masked,
+         LANES),
+        ("path", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:490", path_counts, err_path, half),
+        ("backtrace", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:695", path_counts, err_bt, half),
+    )
     kernels = [
-        {"name": "scores_fs", "route": "cuda", "source": source,
-         "replaces": "spec_viterbi_tpu/ops/fused_pallas.py:360",
-         "launches": counts["scores_fs"], "max_abs_err": err_fs,
-         "ms": timed["scores_fs"][0], "plain_ms": timed["scores_fs"][1]},
-        {"name": "scores_masked", "route": "cuda", "source": source,
-         "replaces": "spec_viterbi_tpu/ops/fused_pallas.py:203",
-         "launches": counts["scores_masked"], "max_abs_err": err_masked,
-         "ms": timed["scores_masked"][0], "plain_ms": timed["scores_masked"][1]},
-        {"name": "path", "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/path.cu",
-         "replaces": "spec_viterbi_tpu/ops/fused_pallas.py:490",
-         "launches": path_counts["path"], "max_abs_err": err_path,
-         "ms": timed["path"][0], "plain_ms": timed["path"][1]},
-        {"name": "backtrace", "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/path.cu",
-         "replaces": "spec_viterbi_tpu/ops/fused_pallas.py:695",
-         "launches": path_counts["backtrace"], "max_abs_err": err_bt,
-         "ms": timed["backtrace"][0], "plain_ms": timed["backtrace"][1]},
-        *window_kernels,
-    ]
+        {"name": name, "route": "cuda", "source": f"spec_viterbi_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launched[name], "max_abs_err": err,
+         "ms": timed[name][0], "plain_ms": timed[name][1],
+         "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": None,
+         "shape": f"{lanes} lanes x {steps} steps"}
+        for name, src, replaces, launched, err, lanes in entries
+    ] + window_kernels + probe_kernels
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

@@ -223,4 +223,20 @@ int svt_scores_fs(const FsDesc* desc, const float* dv, const unsigned char* flag
   return (int)cudaGetLastError();
 }
 
+// Registers a thread and resident CTAs an SM of svt_scores_fs (which = 0)
+// or svt_scores_masked at two dense columns (which = 1) for n states: what
+// decides how many lanes one wave of CTAs holds (the lane-count probe of
+// spec_viterbi_tpu_torch/probes/laneblock.py reads it).
+int svt_scores_occupancy(int which, int n, int* regs, int* ctas_per_sm) {
+  const void* fn = which == 0 ? (const void*)scores_fs_kernel : (const void*)scores_masked_kernel<2>;
+  const size_t smem = 2 * (size_t)n * sizeof(float);
+  int rc = set_smem(fn, smem);
+  if (rc) return rc;
+  cudaFuncAttributes attr;
+  rc = (int)cudaFuncGetAttributes(&attr, fn);
+  if (rc) return rc;
+  *regs = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, SVT_THREADS, smem);
+}
+
 }  // extern "C"

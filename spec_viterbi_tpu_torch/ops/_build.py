@@ -157,6 +157,14 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_window.restype = i32
     lib.svt_path_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 5 + [i32] * 5 + [vp]
     lib.svt_path_window.restype = i32
+    lib.svt_probe_pass.argtypes = [i32, i32] + [vp] * 6 + [i32] * 5 + [vp]
+    lib.svt_probe_pass.restype = i32
+    lib.svt_probe_emsel.argtypes = [i32] + [vp] * 4 + [i32] * 4 + [vp]
+    lib.svt_probe_emsel.restype = i32
+    lib.svt_scores_variant.argtypes = [i32] + [vp] * 9 + [i32, i32, vp]
+    lib.svt_scores_variant.restype = i32
+    lib.svt_scores_occupancy.argtypes = [i32, i32, vp, vp]
+    lib.svt_scores_occupancy.restype = i32
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):
         if lib.svt_desc_size(which) != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout differs from csrc/")

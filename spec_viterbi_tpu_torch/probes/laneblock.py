@@ -1,0 +1,98 @@
+"""S3: the lane-block question of ``scripts/exp_fs_laneblock2.py``, on the
+H100.
+
+On the TPU a wider lane block hands the compiler more independent chains
+to interleave, and ``empty_run`` pinned the per-step floor of the widest
+block. On the card one CTA of 256 threads runs one lane; the question is
+whether 512 such CTAs (on 132 SMs) leave the card's latency unhidden,
+and whether more lanes per CTA or more CTAs help. So this times:
+
+- the ``empty`` probe with the step's symbol added (``empty_run``'s
+  body) at 1, 2 and 4 lanes per CTA, [2,432, 512] carries, 3,496 steps;
+- ``svt_scores_fs`` and ``svt_scores_masked`` (unmasked) on the
+  corpus-shaped stand-in at 128, 256, 512 and 1,024 lanes, one CTA a
+  lane (the batches repeat or cut the 512 sequences, so the lanes they
+  share must give the same scores bit for bit): flat times while the
+  chain's latency bounds a step, times that grow with the lanes once the
+  SMs' throughput does; with each kernel's registers a thread and the
+  CTAs an SM holds, as the card reports them, so the lanes one wave
+  holds.
+
+It also gives the chain floor (:func:`empty_floor`): the empty step's
+time at any carry length and CTA count, which the bounds of the
+production kernels leave out.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spec_viterbi_tpu_torch.ops import fused, probes
+from spec_viterbi_tpu_torch.probes.common import (
+    LANES,
+    N_STATES,
+    STATES_MATCH,
+    T_LEN,
+    CorpusBatch,
+    PassInputs,
+    Record,
+    median_ms,
+)
+
+EMPTY_STEPS = 3496
+LANES_PER_CTA = (1, 2, 4)
+FS_LANES = (128, 256, 512, 1024)
+
+
+def empty_us_per_step(n: int, ctas: int, steps: int, seed: int, device,
+                      lanes_per_cta: int = 1, symbols: bool = True) -> float:
+    """µs per step of the ``empty`` probe on ``ctas * lanes_per_cta`` lanes
+    of ``n`` states."""
+    inp = PassInputs.make(n, ctas * lanes_per_cta, steps, seed, device)
+    obs = inp.obs if symbols else None
+    return median_ms(lambda: probes.probe_pass(
+        "empty", inp.v0, steps, obs=obs, lanes_per_cta=lanes_per_cta)) * 1e3 / steps
+
+
+def empty_floor(rec: Record, configs, steps: int, seed: int, device) -> dict:
+    """The chain floor per ``(name, n, ctas)``: the empty probe's µs per
+    step and that times ``steps``."""
+    out = {}
+    for name, n, ctas in configs:
+        us = empty_us_per_step(n, ctas, EMPTY_STEPS, seed, device, symbols=False)
+        out[name] = rec.emit(f"chain_floor_{name}", n=n, ctas=ctas, us_per_step=us,
+                             steps=steps, floor_ms=us * steps / 1e3)
+    return out
+
+
+def run(rec: Record, device, seed: int = 0, corpus: CorpusBatch | None = None) -> dict:
+    out = {}
+    for lpc in LANES_PER_CTA:
+        us = empty_us_per_step(N_STATES, LANES // lpc, EMPTY_STEPS, seed, device, lanes_per_cta=lpc)
+        out[f"empty_lpc{lpc}"] = rec.emit(f"empty_b{LANES}_lpc{lpc}", us_per_step=us,
+                                          lanes_per_cta=lpc, ctas=LANES // lpc, steps=EMPTY_STEPS)
+    corpus = corpus or CorpusBatch.make(STATES_MATCH, LANES, T_LEN, seed, device)
+    fd = corpus.fd
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for name in ("fs", "masked"):
+        regs, ctas = probes.scores_occupancy(name, fd.n, device)
+        out[f"occupancy_{name}"] = rec.emit(f"occupancy_{name}", registers=regs, ctas_per_sm=ctas,
+                                            sms=sms, lanes_per_wave=ctas * sms, n=fd.n)
+    first = None
+    for lanes in FS_LANES:
+        c = corpus.widened(lanes)
+        steps = c.obs.shape[0]
+        got = fused.scores_fs(fd._fs, fd.em, c.v0, c.obs)
+        if first is None:
+            first = got
+        if not torch.equal(got[:, : first.shape[1]], first):
+            raise RuntimeError(f"svt_scores_fs at {lanes} lanes differs from {FS_LANES[0]} lanes")
+        for name, fn in (
+            ("fs", lambda: fused.scores_fs(fd._fs, fd.em, c.v0, c.obs)),
+            ("masked", lambda: fused.scores_masked(fd._masked, fd.em, c.v0, c.obs, None)),
+        ):
+            ms = median_ms(fn)
+            out[f"{name}_b{lanes}"] = rec.emit(
+                f"{name}_b{lanes}", us_per_step=ms * 1e3 / steps, ms=ms,
+                msym_per_s=lanes * (steps + 1) / (ms * 1e3), steps=steps)
+    return out

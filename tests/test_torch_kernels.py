@@ -432,3 +432,111 @@ def test_window_wrappers_check_inputs(cuda_device):
     with pytest.raises(ValueError, match="bp"):
         fused_tp.path_window(t, v, obs, lens, bp=torch.empty((1, 5, tp.n), dtype=torch.int16,
                                                              device=cuda_device))
+
+
+# ---- the probe kernels (csrc/probes.cu) ---------------------------------
+
+
+def _pass_inputs(n, lanes, steps, device, seed=0):
+    from spec_viterbi_tpu_torch.probes.common import PassInputs
+
+    return PassInputs.make(n, lanes, steps, seed, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cls,p,lanes_per_cta",
+    [("empty", 0, 1), ("empty", 0, 2), ("empty", 0, 4), ("stream", 3, 1), ("neighbour", 8, 1),
+     ("colred", 3, 1), ("colred", 8, 1), ("bcast", 3, 1), ("emission", 4, 1), ("twosym", 0, 1)],
+)
+def test_probe_pass_equals_plain_on_card(cuda_device, cls, p, lanes_per_cta):
+    """svt_probe_pass against probe_pass_plain on the same card tensors,
+    bit for bit; empty with and without the steps' symbols."""
+    from spec_viterbi_tpu_torch.ops import probes
+
+    steps = 10
+    for n in (256, 200):
+        inp = _pass_inputs(n, 24, steps, cuda_device)
+        tab = inp.tabs if cls == "twosym" else inp.em
+        for obs in ((inp.obs, None) if cls == "empty" else (inp.obs,)):
+            args = dict(obs=obs, cols=inp.cols, bufs=inp.bufs, tab=tab, p=p)
+            probes.reset_launches()
+            got = probes.probe_pass(cls, inp.v0, steps, lanes_per_cta=lanes_per_cta, **args)
+            want = probes.probe_pass_plain(cls, inp.v0, steps, **args)
+            torch.cuda.synchronize()
+            assert probes.launches["probe_pass"] == 1
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["gather", "tf32", "bf16", "split2", "split3"])
+def test_probe_emsel_equals_plain_on_card(cuda_device, scheme):
+    """svt_probe_emsel against probe_emsel_plain, bit for bit: the
+    one-hot products are exact and the tables arrive pre-rounded."""
+    from spec_viterbi_tpu_torch.ops import probes
+
+    inp = _pass_inputs(256, 24, 7, cuda_device, seed=1)
+    tabs = probes.emsel_tables(inp.em, scheme)
+    for p in (1, 3):
+        got = probes.probe_emsel(scheme, tabs, inp.v0, inp.obs, 7, p)
+        want = probes.probe_emsel_plain(tabs, inp.v0, inp.obs, 7, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hmm", _models())
+@pytest.mark.parametrize(
+    "name", ["baseline", "bf16_ops", "em_staged", "no_cols", "no_em", "no_special", "short_chain"])
+def test_scores_variant_equals_plain_on_card(cuda_device, hmm, name):
+    """svt_scores_variant against scores_variant_plain with the same
+    flag, ragged and uniform, bit for bit; with no flag (and staged) also
+    against svt_scores_masked."""
+    from spec_viterbi_tpu_torch.ops import probes
+
+    fd = _decoder(hmm, cuda_device)
+    t = probes.VariantTables.build(fd._masked, fd.em, probes.variant_flag(name))
+    rng = np.random.default_rng(3)
+    for lengths in (rng.integers(1, 40, size=37), [30] * 37):
+        st, ln, _ = fd.prepare(_seqs(rng, lengths, hmm.emit_num))
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        for lens in (ln, None):
+            got = probes.scores_variant(t, v0, st[1:], lens)
+            want = probes.scores_variant_plain(t, v0, st[1:], lens)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            if name in ("baseline", "em_staged"):
+                assert torch.equal(got, fused.scores_masked(fd._masked, fd.em, v0, st[1:], lens))
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_check_inputs(cuda_device):
+    from spec_viterbi_tpu_torch.ops import probes
+
+    inp = _pass_inputs(256, 16, 4, cuda_device)
+    with pytest.raises(ValueError, match="obs"):
+        probes.probe_pass("emission", inp.v0, 4, obs=inp.obs.long(), tab=inp.em, p=1)
+    with pytest.raises(ValueError, match="cols"):
+        probes.probe_pass("bcast", inp.v0, 4, cols=inp.cols.T.contiguous(), p=1)
+    with pytest.raises(ValueError, match="tabs"):
+        probes.probe_emsel("bf16", probes.emsel_tables(inp.em, "gather"), inp.v0, inp.obs, 4, 1)
+    with pytest.raises(ValueError, match="multiple"):
+        probes.probe_emsel("gather", probes.emsel_tables(inp.em, "gather"), inp.v0[:, :12].contiguous(),
+                           inp.obs[:, :12].contiguous(), 4, 1)
+    fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
+    t = probes.VariantTables.build(fd._masked, fd.em, 0)
+    st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 5], 20))
+    v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+    with pytest.raises(ValueError, match="lengths"):
+        probes.scores_variant(t, v0, st[1:], ln.long())
+
+
+@pytest.mark.cuda
+def test_scores_occupancy_on_card(cuda_device):
+    """The card reports registers and resident CTAs of both scores
+    kernels; at least one CTA of 256 threads fits an SM."""
+    from spec_viterbi_tpu_torch.ops import probes
+
+    for kernel in ("fs", "masked"):
+        regs, ctas = probes.scores_occupancy(kernel, 2432, cuda_device)
+        assert 0 < regs <= 255 and 1 <= ctas <= 8
