@@ -92,10 +92,10 @@ import time
 
 import numpy as np
 
-STATES_MATCH = 2405  # + the N and C states: the 2,407-state benchmark model
-LANES = 512
-T_LEN = 3500
-REPEATS = 5
+# the corpus-shaped stand-in (2,407 states), 512 lanes x 3,500 symbols,
+# and the median's repeats: the shapes the probes use too
+from spec_viterbi_tpu_torch.probes.common import LANES, REPEATS, STATES_MATCH, T_LEN
+
 PROBE_SLICE = 64  # steps of the probe kernels' kernel-vs-plain slice
 PLAIN_PATH_REPEATS = 2  # the plain path scan takes seconds per call
 STREAM_CHUNKS = (999, 1500, 1000)  # after the first symbol: 3,500 in all
@@ -214,12 +214,13 @@ def tp_dist(seed: int, uniform: list, scores, paths, tmp: str) -> None:
           bit_equal=True, decode_batch_seconds=warm[0], decode_path_batch_seconds=warm[1])
 
 
-def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> dict:
+def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list, list]:
     """The phases ``tp_main``, ``tp_kernel_vs_plain``, ``tp_oracle``,
     ``dp``, ``tp_dist`` and the window kernels' ``time`` lines. ``fd``,
     ``ragged`` and ``scores_r`` are the corpus model's fused decoder, ragged
     set and ``decode_batch`` scores. Returns the window kernels' entries
-    of the ``kernels`` line."""
+    of the ``kernels`` line, and the shapes of their launches as (name,
+    window rows, CTAs) for the chain floor."""
     import torch
 
     from spec_viterbi_tpu_torch import viterbi_path_oracle
@@ -412,13 +413,19 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> dict:
             median_ms(lambda: fused.path(ref._masked, ref.em, v0_p, st_p[1:], None)),
         ),
     }
-    kernels = []
+    kernels, floors = [], []
     n_global = tp.h_lo + tp.n + tp.h_hi
     for name, (lanes, decode_ms, ms, plain_ms, unsharded, unsharded_ms) in rows.items():
-        work = bounds.window_scores if name == "scores_window" else bounds.window_path
         geometry = (len(TP_OFFSETS), tp.n_win, TP_SHARDS, n_global, lanes)
-        bound_ms, bound_by = work(*geometry, span_steps, len(cks), TP_SYMBOLS).bound()
-        decode_bound_ms, decode_bound_by = work(*geometry, steps, chunks, TP_SYMBOLS).bound()
+
+        def work(steps, launches):
+            if name == "scores_window":
+                return bounds.window_scores(*geometry, steps, launches, TP_SYMBOLS)
+            return bounds.window_path(*geometry, steps, launches, TP_SYMBOLS, block=tp.block)
+
+        bound_ms, bound_by = work(span_steps, len(cks)).bound()
+        decode_bound_ms, decode_bound_by = work(steps, chunks).bound()
+        floors.append((f"window_b{lanes}", tp.n_win, lanes * TP_SHARDS))
         phase("time", kernel=name, card=card, lanes=lanes, shards=TP_SHARDS, steps=steps,
               decode_ms=decode_ms, decode_us_per_step=decode_ms * 1e3 / steps,
               decode_bound_ms=decode_bound_ms, decode_bound_by=decode_bound_by,
@@ -435,15 +442,16 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> dict:
             "library_ms": None, "shape": f"{lanes} lanes x {span_steps} steps, {len(cks)} launches",
             "decode_launches": chunks, "decode_ms": decode_ms, "decode_bound_ms": decode_bound_ms,
         })
-    return kernels
+    return kernels, floors
 
 
-def probes_phase(seed: int, card: str, hmm, fd, seqs_t) -> list:
+def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> list:
     """``probes``: the H100 probes on the uniform set ``seqs_t`` [T, B] of
     the corpus model (``hmm``, its fused decoder ``fd``), the launch counts
-    of the probe kernels read around that run, the chain floors, then each
-    probe kernel against its plain version on a 64-step slice. Returns the
-    probe kernels' entries of the ``kernels`` line."""
+    of the probe kernels read around that run, the chain floors (the
+    window kernels' launch shapes ``window_floors`` from :func:`tp_and_dp`),
+    then each probe kernel against its plain version on a 64-step slice.
+    Returns the probe kernels' entries of the ``kernels`` line."""
     import torch
 
     from spec_viterbi_tpu_torch.ops import fused, probes
@@ -469,10 +477,8 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t) -> list:
     # the chain floor: the empty step at each production kernel's carry
     # length and CTA count (window kernels: n_win rows, lanes x shards CTAs)
     steps = T_LEN - 1
-    n_win = 656  # rows of a TP window (tp_main checks the geometry)
     laneblock.empty_floor(rec, [
-        ("scores_b512", N_STATES, LANES), ("path_b256", N_STATES, TP_PATH_LANES),
-        ("window_b512", n_win, LANES * TP_SHARDS), ("window_b256", n_win, TP_PATH_LANES * TP_SHARDS),
+        ("scores_b512", N_STATES, LANES), ("path_b256", N_STATES, TP_PATH_LANES), *window_floors,
     ], steps, seed, dev)
 
     # each probe kernel against its plain version on a 64-step slice
@@ -530,13 +536,17 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t) -> list:
     replaces = {"probe_pass": "scripts/exp_roofline.py:130",
                 "probe_emsel": "scripts/exp_mxu_precision.py:127",
                 "scores_variant": "scripts/exp_kernel_variants.py:34"}
+    # the tensor-core time of the timed select's one-hot products, beside
+    # (not in) its bound
+    extra = {"probe_emsel": {"mma_ms": bounds.emsel_mma_ms("bf16", N_STATES, LANES, PROBE_SLICE, 2)}}
+    source = {"probe_pass": "probes.cu", "probe_emsel": "probes.cu", "scores_variant": "scores.cu"}
     kernels = []
     for name, (what, ms, plain_ms) in timed.items():
         bound_ms, bound_by = work[name].bound()
         phase("time", kernel=name, card=card, shape=f"{what}, {LANES} lanes x {PROBE_SLICE} steps",
-              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **extra.get(name, {}))
         kernels.append({
-            "name": name, "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/probes.cu",
+            "name": name, "route": "cuda", "source": f"spec_viterbi_tpu_torch/csrc/{source[name]}",
             "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "shape": f"{what}, {LANES} lanes x {PROBE_SLICE} steps",
@@ -814,8 +824,8 @@ def main() -> int:
     stream_counts["path"] = dict(fused.launches)
     phase("stream", seconds=ssecs, launches=stream_counts, chunks=list(STREAM_CHUNKS))
 
-    window_kernels = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r)
-    probe_kernels = probes_phase(args.seed, card, hmm, fd, seqs_t)
+    window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r)
+    probe_kernels = probes_phase(args.seed, card, hmm, fd, seqs_t, window_floors)
 
     # ---- times at the uniform shape ------------------------------------
     steps = obs.shape[0]

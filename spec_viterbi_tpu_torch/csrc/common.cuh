@@ -4,6 +4,7 @@
 // ScoresDesc field for field and checks the struct's size at load time.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,23 +57,36 @@ __device__ __forceinline__ float warp_min(float x) {
   return x;
 }
 
+// An operand value as f32: f32 tables as they are, bf16 tables (the
+// bf16_ops variant of the masked scores kernel) upcast exactly.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 // min over the diagonal and dense-row candidates of row i of an n-row
 // carry. The value arrays dv [D][stride] and rv [R][stride] hold row i at
 // column i: stride is n for a whole operator and the padded global state
 // count for a window (csrc/window.cu). A source outside [0, n) gives no
 // candidate. The descriptor is read from the kernel parameter (the
 // constant bank): a copy in shared memory could alias the carry, and the
-// compiler would then reload it for every state.
-__device__ __forceinline__ float bulk_candidate(const ScoresDesc& desc, const float* __restrict__ dv,
-                                                const float* __restrict__ rv, int stride,
-                                                const float* cur, int n, int i) {
+// compiler would then reload it for every state. FOLD (the short_chain
+// variant of the masked scores kernel) adds the emission e to each value
+// before the carry, (e + w) + cur[j], so the step rounds twice.
+template <bool FOLD = false, typename T>
+__device__ __forceinline__ float bulk_candidate(const ScoresDesc& desc, const T* __restrict__ dv,
+                                                const T* __restrict__ rv, int stride,
+                                                const float* cur, int n, int i, float e = 0.0f) {
   float a = INFINITY;
   for (int q = 0; q < desc.n_diag; ++q) {
     const int j = i - desc.diag_off[q];
-    if (j >= 0 && j < n) a = fminf(a, dv[(size_t)q * stride + i] + cur[j]);
+    if (j >= 0 && j < n) {
+      const float w = ld(dv + (size_t)q * stride + i);
+      a = fminf(a, (FOLD ? e + w : w) + cur[j]);
+    }
   }
-  for (int r = 0; r < desc.n_row; ++r)
-    a = fminf(a, rv[(size_t)r * stride + i] + cur[desc.row_idx[r]]);
+  for (int r = 0; r < desc.n_row; ++r) {
+    const float w = ld(rv + (size_t)r * stride + i);
+    a = fminf(a, (FOLD ? e + w : w) + cur[desc.row_idx[r]]);
+  }
   return a;
 }
 

@@ -9,12 +9,10 @@
 //   svt_probe_emsel     replaces scripts/exp_mxu_precision.py::
 //                       micro_mxu_prec: P emission selects per step, by a
 //                       direct read or by mma.sync against a one-hot.
-//   svt_scores_variant  replaces the B1 bodies that the TPU probes patch in
-//                       at spec_viterbi_tpu/ops/fused_pallas.py:1323
-//                       (exp_roofline.py::_make_bf16_kernel,
-//                       _make_embatch_kernel; exp_kernel_variants.py::
-//                       make_variant_kernel, make_shortchain_kernel): the
-//                       masked scores kernel with compile-time flags.
+//
+// The third probe kernel, svt_scores_variant (the ablated B1 bodies), is
+// the masked scores kernel itself with compile-time flags, in
+// csrc/scores.cu.
 //
 // A probe measures, it serves no request: the pass and select probes
 // compute what the TPU bodies compute (tests/test_torch_probes.py holds
@@ -27,8 +25,6 @@
 // whole T-step loop, and a pass's cost is the slope of the loop's time
 // over P. Built without --use_fast_math, so every add rounds once and the
 // kernels equal their plain versions bit for bit.
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -360,219 +356,6 @@ static int launch_emsel(const float* v0, const void* tab, const int* obs, float*
   return (int)cudaGetLastError();
 }
 
-// ---- svt_scores_variant ---------------------------------------------------
-//
-// svt_scores_masked (csrc/scores.cu) with compile-time flags, for a
-// per-component cost breakdown of the production step. With no flag set
-// it is that kernel, bit for bit, and should take its time. Flags (one at
-// a time; ops/probes.py mirrors the bits):
-//   BF16_OPS     dv, rv, cv and the emission table stored as bf16 and
-//                upcast (residual values rounded to bf16 in the descriptor):
-//                the all-bf16 arm of exp_roofline.py::_make_bf16_kernel.
-//   EM_STAGED    the emission rows of the next EM_STAGE_STEPS steps copied
-//                into shared memory with cp.async one block ahead, double-
-//                buffered: the counterpart of _make_embatch_kernel's one
-//                wide emission fetch per grid cell. Exact.
-//   NO_COLS      no dense-column reduces (the special rows keep their bulk
-//                and residual candidates): make_variant_kernel's no_cols.
-//   NO_EM        one constant emission row, em[0]: its no_mxu.
-//   NO_SPECIAL   no column reduces, no special-row patch, no middle barrier:
-//                its no_spec.
-//   SHORT_CHAIN  em + dv and em + rv formed before the carry is read, so the
-//                chain after the carry load is one add and the mins:
-//                make_shortchain_kernel. Rounds differently (timing only).
-// The ablations give wrong scores on purpose; each flag's plain version in
-// ops/probes.py computes what it computes, and the kernel equals it.
-
-#define VF_BF16_OPS 1
-#define VF_EM_STAGED 2
-#define VF_NO_COLS 4
-#define VF_NO_EM 8
-#define VF_NO_SPECIAL 16
-#define VF_SHORT_CHAIN 32
-#define EM_STAGE_STEPS 4
-
-template <int FLAGS>
-struct VariantElem {
-  using T = float;
-};
-template <>
-struct VariantElem<VF_BF16_OPS> {
-  using T = __nv_bfloat16;
-};
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-template <int C_CAP, int FLAGS>
-__global__ void __launch_bounds__(SVT_THREADS)
-scores_variant_kernel(const ScoresDesc desc, const typename VariantElem<FLAGS>::T* __restrict__ dv,
-                      const typename VariantElem<FLAGS>::T* __restrict__ rv,
-                      const typename VariantElem<FLAGS>::T* __restrict__ cv,
-                      const typename VariantElem<FLAGS>::T* __restrict__ em,
-                      const float* __restrict__ v0, const int* __restrict__ obs,
-                      const int* __restrict__ lengths, float* __restrict__ out, int batch,
-                      int steps) {
-  constexpr bool kStaged = FLAGS & VF_EM_STAGED;
-  constexpr bool kNoEm = FLAGS & VF_NO_EM;
-  constexpr bool kSpecial = !(FLAGS & VF_NO_SPECIAL);
-  constexpr bool kCols = kSpecial && !(FLAGS & VF_NO_COLS);
-  constexpr bool kShort = FLAGS & VF_SHORT_CHAIN;
-  constexpr int U = EM_STAGE_STEPS;
-  extern __shared__ float smem[];  // carry [2][n], then (EM_STAGED) stage [2][U][n]
-  __shared__ float red[SVT_WARPS][C_CAP];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int n = desc.n, n_col = desc.n_col;
-  float* carry = smem;
-  float* stage = smem + 2 * n;
-  for (int i = tid; i < n; i += SVT_THREADS) carry[i] = v0[(size_t)i * batch + b];
-  const int my_steps = lane_steps(lengths, b, steps);
-
-  // request the emission rows of steps [t_first, t_first + U) into `dst`
-  auto request = [&](float* dst, int t_first) {
-    for (int u = 0; u < U && t_first + u < my_steps; ++u) {
-      const float* src = (const float*)em + (size_t)obs[(size_t)(t_first + u) * batch + b] * n;
-      for (int c = tid * 4; c < n; c += SVT_THREADS * 4) cp_async16(dst + u * n + c, src + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  if (kStaged) request(stage, 0);
-  __syncthreads();
-
-  // min over the diagonal and dense-row candidates of row i (SHORT_CHAIN
-  // folds the emission e into each candidate, else the caller adds it)
-  auto bulk = [&](const float* cur, int i, float e) {
-    float a = INFINITY;
-    for (int qd = 0; qd < desc.n_diag; ++qd) {
-      const int j = i - desc.diag_off[qd];
-      if (j >= 0 && j < n) {
-        const float w = ld(dv + (size_t)qd * n + i);
-        a = fminf(a, kShort ? (e + w) + cur[j] : w + cur[j]);
-      }
-    }
-    for (int r = 0; r < desc.n_row; ++r) {
-      const float w = ld(rv + (size_t)r * n + i);
-      a = fminf(a, kShort ? (e + w) + cur[desc.row_idx[r]] : w + cur[desc.row_idx[r]]);
-    }
-    return a;
-  };
-
-  float* cur = carry;
-  float* nxt = carry + n;
-  for (int t = 0; t < my_steps; ++t) {
-    const typename VariantElem<FLAGS>::T* em_row = em;
-    const float* em_stage = nullptr;
-    if (kStaged) {
-      if (t % U == 0) {
-        // rows of this block arrived one block ago; request the next block
-        // into the other buffer, whose readers passed the last step's barrier
-        request(stage + (((t / U) + 1) & 1) * U * n, t + U);
-        asm volatile("cp.async.wait_group 1;\n" ::);
-        __syncthreads();
-      }
-      em_stage = stage + (((t / U) & 1) * U + t % U) * n;
-    } else if (!kNoEm) {
-      em_row = em + (size_t)obs[(size_t)t * batch + b] * n;
-    }
-    auto emv = [&](int i) { return kStaged ? em_stage[i] : ld(em_row + i); };
-
-    float cpart[C_CAP];
-#pragma unroll
-    for (int c = 0; c < C_CAP; ++c) cpart[c] = INFINITY;
-    for (int i = tid; i < n; i += SVT_THREADS) {
-      const float e = emv(i);
-      const float a = bulk(cur, i, e);
-      nxt[i] = kShort ? a : e + a;
-      if (kCols) {
-        const float vi = cur[i];
-#pragma unroll
-        for (int c = 0; c < C_CAP; ++c)
-          if (c < n_col) cpart[c] = fminf(cpart[c], ld(cv + (size_t)c * n + i) + vi);
-      }
-    }
-    if (kSpecial) {
-      if (kCols) {
-#pragma unroll
-        for (int c = 0; c < C_CAP; ++c) {
-          if (c < n_col) {
-            const float m = warp_min(cpart[c]);
-            if (lane == 0) red[warp][c] = m;
-          }
-        }
-      }
-      __syncthreads();
-      // one warp patches the special rows: column targets and residual
-      // destinations
-      if (warp == 0) {
-        for (int s = lane; s < desc.n_special; s += 32) {
-          const int r = desc.sp_row[s];
-          const float e = emv(r);
-          float x = INFINITY;
-          if (kCols) {
-            for (int c = 0; c < n_col; ++c) {
-              if (desc.col_idx[c] != r) continue;
-              for (int w = 0; w < SVT_WARPS; ++w) x = fminf(x, red[w][c]);
-            }
-          }
-          for (int z = 0; z < desc.n_res; ++z)
-            if (desc.res_dst[z] == r) x = fminf(x, desc.res_val[z] + cur[desc.res_src[z]]);
-          const float a = bulk(cur, r, e);
-          nxt[r] = kShort ? fminf(a, e + x) : e + fminf(a, x);
-        }
-      }
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  if (kStaged) asm volatile("cp.async.wait_group 0;\n" ::);
-  for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
-}
-
-template <int C_CAP, int FLAGS>
-static int launch_variant(const ScoresDesc* desc, const void* dv, const void* rv, const void* cv,
-                          const void* em, const float* v0, const int* obs, const int* lengths,
-                          float* out, int batch, int steps, void* stream) {
-  using T = typename VariantElem<FLAGS>::T;
-  size_t smem = 2 * (size_t)desc->n * sizeof(float);
-  if (FLAGS & VF_EM_STAGED) smem += 2 * (size_t)EM_STAGE_STEPS * desc->n * sizeof(float);
-  auto kernel = scores_variant_kernel<C_CAP, FLAGS>;
-  int rc = set_smem((const void*)kernel, smem);
-  if (rc) return rc;
-  kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(
-      *desc, (const T*)dv, (const T*)rv, (const T*)cv, (const T*)em, v0, obs, lengths, out, batch,
-      steps);
-  return (int)cudaGetLastError();
-}
-
-template <int C_CAP>
-static int dispatch_variant(int flags, const ScoresDesc* desc, const void* dv, const void* rv,
-                            const void* cv, const void* em, const float* v0, const int* obs,
-                            const int* lengths, float* out, int batch, int steps, void* stream) {
-#define SVT_VARIANT(F) \
-  case F:              \
-    return launch_variant<C_CAP, F>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream)
-  switch (flags) {
-    SVT_VARIANT(0);
-    SVT_VARIANT(VF_BF16_OPS);
-    SVT_VARIANT(VF_EM_STAGED);
-    SVT_VARIANT(VF_NO_COLS);
-    SVT_VARIANT(VF_NO_EM);
-    SVT_VARIANT(VF_NO_SPECIAL);
-    SVT_VARIANT(VF_SHORT_CHAIN);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SVT_VARIANT
-}
-
 extern "C" {
 
 int svt_probe_pass(int cls, int lanes, const float* v0, const float* cols, const float* bufs,
@@ -619,17 +402,6 @@ int svt_probe_emsel(int scheme, const float* v0, const void* tab, const int* obs
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-int svt_scores_variant(int flags, const ScoresDesc* desc, const void* dv, const void* rv,
-                       const void* cv, const void* em, const float* v0, const int* obs,
-                       const int* lengths, float* out, int batch, int steps, void* stream) {
-  const int c = desc->n_col;
-  if (c <= 2)
-    return dispatch_variant<2>(flags, desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
-  if (c <= 8)
-    return dispatch_variant<8>(flags, desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

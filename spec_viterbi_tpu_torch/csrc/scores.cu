@@ -12,6 +12,11 @@
 //                      dense rows, one shared column reduce plus scalar
 //                      fixes).
 //
+// A third entry point, svt_scores_variant (loaded by ops/probes.py),
+// launches the masked kernel with compile-time flags that strip or change
+// one part of its step, so the probes' ablations always time the kernel
+// that production runs.
+//
 // Recurrence per lane b, in -log2 space with +inf as the semiring zero:
 //   v'[i] = em[o_t][i] + min(candidates of row i),
 // every candidate one f32 add, rounded once, and min exact, so the result
@@ -28,6 +33,8 @@
 // step, and lets one warp patch the few special rows after the pass.
 // One CTA owns one lane, so a lane that is done stops (the masked
 // kernel's per-lane freeze) and lanes never wait for each other.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -51,60 +58,150 @@ struct FsDesc {
   float cand_val[MAX_CANDS];
 };
 
+// Compile-time flags of the masked kernel, 0 in production. Each other
+// value (one at a time; ops/probes.py mirrors the bits) changes or strips
+// one part of the step, for the per-component cost breakdown of the probes
+// (entry point svt_scores_variant, which replaces the B1 bodies that the
+// TPU probes patch in at spec_viterbi_tpu/ops/fused_pallas.py:1323):
+//   BF16_OPS     dv, rv, cv and the emission table stored as bf16 and
+//                upcast (residual values rounded to bf16 in the descriptor):
+//                the all-bf16 arm of scripts/exp_roofline.py::
+//                _make_bf16_kernel.
+//   EM_STAGED    the emission rows of the next EM_STAGE_STEPS steps copied
+//                into shared memory with cp.async one block ahead, double-
+//                buffered: the counterpart of exp_roofline.py::
+//                _make_embatch_kernel's one wide emission fetch per grid
+//                cell. Exact.
+//   NO_COLS      no dense-column reduces (the special rows keep their bulk
+//                and residual candidates): scripts/exp_kernel_variants.py::
+//                make_variant_kernel's no_cols.
+//   NO_EM        one constant emission row, em[0]: its no_mxu.
+//   NO_SPECIAL   no column reduces, no special-row patch, no middle barrier:
+//                its no_spec.
+//   SHORT_CHAIN  em + dv and em + rv formed before the carry is read, so the
+//                chain after the carry load is one add and the mins:
+//                exp_kernel_variants.py::make_shortchain_kernel. Rounds
+//                differently (timing only).
+// The ablations give wrong scores on purpose; each flag's plain version in
+// ops/probes.py computes what it computes, and the kernel equals it.
+#define VF_BF16_OPS 1
+#define VF_EM_STAGED 2
+#define VF_NO_COLS 4
+#define VF_NO_EM 8
+#define VF_NO_SPECIAL 16
+#define VF_SHORT_CHAIN 32
+#define EM_STAGE_STEPS 4
+
+// The operand type of a flag set: bf16 under BF16_OPS, else f32.
+template <int FLAGS>
+using ScoresElem = typename std::conditional<(FLAGS & VF_BF16_OPS) != 0, __nv_bfloat16, float>::type;
+
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+
 // C_CAP bounds the dense columns whose partial mins each thread keeps in
 // registers; the entry point picks the smallest instantiation that fits.
-template <int C_CAP>
+template <int C_CAP, int FLAGS = 0>
 __global__ void __launch_bounds__(SVT_THREADS)
-scores_masked_kernel(const ScoresDesc desc, const float* __restrict__ dv,
-                     const float* __restrict__ rv, const float* __restrict__ cv,
-                     const float* __restrict__ em, const float* __restrict__ v0,
+scores_masked_kernel(const ScoresDesc desc, const ScoresElem<FLAGS>* __restrict__ dv,
+                     const ScoresElem<FLAGS>* __restrict__ rv,
+                     const ScoresElem<FLAGS>* __restrict__ cv,
+                     const ScoresElem<FLAGS>* __restrict__ em, const float* __restrict__ v0,
                      const int* __restrict__ obs, const int* __restrict__ lengths,
                      float* __restrict__ out, int batch, int steps) {
-  extern __shared__ float carry[];  // [2][n]
+  constexpr bool kStaged = FLAGS & VF_EM_STAGED;
+  constexpr bool kNoEm = FLAGS & VF_NO_EM;
+  constexpr bool kSpecial = !(FLAGS & VF_NO_SPECIAL);
+  constexpr bool kCols = kSpecial && !(FLAGS & VF_NO_COLS);
+  constexpr bool kShort = FLAGS & VF_SHORT_CHAIN;
+  constexpr int U = EM_STAGE_STEPS;
+  extern __shared__ float carry[];  // [2][n]; EM_STAGED: then the staged rows [2][U][n]
   __shared__ float red[SVT_WARPS][C_CAP];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const int n = desc.n, n_col = desc.n_col;
   for (int i = tid; i < n; i += SVT_THREADS) carry[i] = v0[(size_t)i * batch + b];
   const int my_steps = lane_steps(lengths, b, steps);
+
+  // EM_STAGED: request the emission rows of steps [t_first, t_first + U)
+  // into `dst`
+  float* const stage = carry + 2 * n;
+  auto request = [&](float* dst, int t_first) {
+    for (int u = 0; u < U && t_first + u < my_steps; ++u) {
+      const float* src = (const float*)em + (size_t)obs[(size_t)(t_first + u) * batch + b] * n;
+      for (int c = tid * 4; c < n; c += SVT_THREADS * 4) cp_async16(dst + u * n + c, src + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if constexpr (kStaged) request(stage, 0);
   __syncthreads();
 
   float* cur = carry;
   float* nxt = carry + n;
   for (int t = 0; t < my_steps; ++t) {
-    const float* em_row = em + (size_t)obs[(size_t)t * batch + b] * n;
+    const ScoresElem<FLAGS>* em_row;
+    if constexpr (kStaged) {
+      if (t % U == 0) {
+        // rows of this block arrived one block ago; request the next block
+        // into the other buffer, whose readers passed the last step's barrier
+        request(stage + (((t / U) + 1) & 1) * U * n, t + U);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+        __syncthreads();
+      }
+      em_row = stage + (((t / U) & 1) * U + t % U) * n;
+    } else if constexpr (kNoEm) {
+      em_row = em;
+    } else {
+      em_row = em + (size_t)obs[(size_t)t * batch + b] * n;
+    }
     float cpart[C_CAP];
 #pragma unroll
     for (int c = 0; c < C_CAP; ++c) cpart[c] = INFINITY;
     for (int i = tid; i < n; i += SVT_THREADS) {
-      nxt[i] = em_row[i] + bulk_candidate(desc, dv, rv, n, cur, n, i);
-      const float vi = cur[i];
+      if constexpr (kShort)
+        nxt[i] = bulk_candidate<true>(desc, dv, rv, n, cur, n, i, ld(em_row + i));
+      else
+        nxt[i] = ld(em_row + i) + bulk_candidate(desc, dv, rv, n, cur, n, i);
+      if constexpr (kCols) {
+        const float vi = cur[i];
+        // one 32-bit index: cv + c * n + i would be two 64-bit pointer
+        // adds, two more instructions a column in the hottest loop
 #pragma unroll
-      for (int c = 0; c < C_CAP; ++c)
-        if (c < n_col) cpart[c] = fminf(cpart[c], cv[c * n + i] + vi);
-    }
-#pragma unroll
-    for (int c = 0; c < C_CAP; ++c) {
-      if (c < n_col) {
-        const float m = warp_min(cpart[c]);
-        if (lane == 0) red[warp][c] = m;
+        for (int c = 0; c < C_CAP; ++c)
+          if (c < n_col) cpart[c] = fminf(cpart[c], ld(cv + (c * n + i)) + vi);
       }
     }
-    __syncthreads();
-
-    // one warp patches the special rows: dense-column targets and
-    // residual destinations
-    if (warp == 0) {
-      for (int s = lane; s < desc.n_special; s += 32) {
-        const int r = desc.sp_row[s];
-        float a = bulk_candidate(desc, dv, rv, n, cur, n, r);
-        for (int c = 0; c < n_col; ++c) {
-          if (desc.col_idx[c] != r) continue;
-          for (int w = 0; w < SVT_WARPS; ++w) a = fminf(a, red[w][c]);
+    if constexpr (kSpecial) {
+      if constexpr (kCols) {
+#pragma unroll
+        for (int c = 0; c < C_CAP; ++c) {
+          if (c < n_col) {
+            const float m = warp_min(cpart[c]);
+            if (lane == 0) red[warp][c] = m;
+          }
         }
-        for (int z = 0; z < desc.n_res; ++z)
-          if (desc.res_dst[z] == r) a = fminf(a, desc.res_val[z] + cur[desc.res_src[z]]);
-        nxt[r] = em_row[r] + a;
+      }
+      __syncthreads();
+
+      // one warp patches the special rows: dense-column targets and
+      // residual destinations
+      if (warp == 0) {
+        for (int s = lane; s < desc.n_special; s += 32) {
+          const int r = desc.sp_row[s];
+          float a = kShort ? INFINITY : bulk_candidate(desc, dv, rv, n, cur, n, r);
+          if constexpr (kCols) {
+            for (int c = 0; c < n_col; ++c) {
+              if (desc.col_idx[c] != r) continue;
+              for (int w = 0; w < SVT_WARPS; ++w) a = fminf(a, red[w][c]);
+            }
+          }
+          for (int z = 0; z < desc.n_res; ++z)
+            if (desc.res_dst[z] == r) a = fminf(a, desc.res_val[z] + cur[desc.res_src[z]]);
+          const float e = ld(em_row + r);
+          nxt[r] = kShort ? fminf(bulk_candidate<true>(desc, dv, rv, n, cur, n, r, e), e + a) : e + a;
+        }
       }
     }
     __syncthreads();
@@ -112,7 +209,45 @@ scores_masked_kernel(const ScoresDesc desc, const float* __restrict__ dv,
     cur = nxt;
     nxt = tmp;
   }
+  if constexpr (kStaged) asm volatile("cp.async.wait_group 0;\n" ::);
   for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
+}
+
+template <int C_CAP, int FLAGS>
+static int launch_masked(const ScoresDesc* desc, const void* dv, const void* rv, const void* cv,
+                         const void* em, const float* v0, const int* obs, const int* lengths,
+                         float* out, int batch, int steps, void* stream) {
+  using T = ScoresElem<FLAGS>;
+  size_t smem = 2 * (size_t)desc->n * sizeof(float);
+  if (FLAGS & VF_EM_STAGED) smem += 2 * (size_t)EM_STAGE_STEPS * desc->n * sizeof(float);
+  auto kernel = scores_masked_kernel<C_CAP, FLAGS>;
+  int rc = set_smem((const void*)kernel, smem);
+  if (rc) return rc;
+  kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(
+      *desc, (const T*)dv, (const T*)rv, (const T*)cv, (const T*)em, v0, obs, lengths, out, batch,
+      steps);
+  return (int)cudaGetLastError();
+}
+
+template <int C_CAP>
+static int launch_variant(int flags, const ScoresDesc* desc, const void* dv, const void* rv,
+                          const void* cv, const void* em, const float* v0, const int* obs,
+                          const int* lengths, float* out, int batch, int steps, void* stream) {
+#define SVT_VARIANT(F) \
+  case F:              \
+    return launch_masked<C_CAP, F>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream)
+  switch (flags) {
+    SVT_VARIANT(0);
+    SVT_VARIANT(VF_BF16_OPS);
+    SVT_VARIANT(VF_EM_STAGED);
+    SVT_VARIANT(VF_NO_COLS);
+    SVT_VARIANT(VF_NO_EM);
+    SVT_VARIANT(VF_NO_SPECIAL);
+    SVT_VARIANT(VF_SHORT_CHAIN);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SVT_VARIANT
 }
 
 __global__ void __launch_bounds__(SVT_THREADS)
@@ -200,16 +335,23 @@ const char* svt_error_string(int code) { return cudaGetErrorString((cudaError_t)
 int svt_scores_masked(const ScoresDesc* desc, const float* dv, const float* rv, const float* cv,
                       const float* em, const float* v0, const int* obs, const int* lengths,
                       float* out, int batch, int steps, void* stream) {
-  const size_t smem = 2 * (size_t)desc->n * sizeof(float);
   const int c = desc->n_col;
-  void (*kernel)(const ScoresDesc, const float*, const float*, const float*, const float*,
-                 const float*, const int*, const int*, float*, int, int) =
-      c <= 2 ? scores_masked_kernel<2> : c <= 8 ? scores_masked_kernel<8> : scores_masked_kernel<MAX_COL>;
-  int rc = set_smem((const void*)kernel, smem);
-  if (rc) return rc;
-  kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(*desc, dv, rv, cv, em, v0, obs,
-                                                              lengths, out, batch, steps);
-  return (int)cudaGetLastError();
+  if (c <= 2) return launch_masked<2, 0>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
+  if (c <= 8) return launch_masked<8, 0>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
+  return launch_masked<MAX_COL, 0>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
+}
+
+// The masked kernel with one of the flags above (0: the production kernel
+// itself), at most 8 dense columns; operands bf16 under BF16_OPS.
+int svt_scores_variant(int flags, const ScoresDesc* desc, const void* dv, const void* rv,
+                       const void* cv, const void* em, const float* v0, const int* obs,
+                       const int* lengths, float* out, int batch, int steps, void* stream) {
+  const int c = desc->n_col;
+  if (c <= 2)
+    return launch_variant<2>(flags, desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
+  if (c <= 8)
+    return launch_variant<8>(flags, desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int svt_scores_fs(const FsDesc* desc, const float* dv, const unsigned char* flags,

@@ -70,7 +70,7 @@ scores_window_kernel(const ScoresDesc desc, const float* __restrict__ dv,
   for (int t = 0; t < my_steps; ++t) {
     const float* em_row = em_w + (size_t)obs[(size_t)t * batch + b] * stride;
     for (int i = tid; i < n; i += SVT_THREADS)
-      nxt[i] = em_row[i] + bulk_candidate(desc, dv_w, nullptr, stride, cur, n, i);
+      nxt[i] = em_row[i] + bulk_candidate(desc, dv_w, (const float*)nullptr, stride, cur, n, i);
     __syncthreads();
     float* tmp = cur;
     cur = nxt;

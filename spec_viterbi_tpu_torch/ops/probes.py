@@ -1,4 +1,5 @@
-"""Probe kernels: wrappers and plain versions of ``csrc/probes.cu``.
+"""Probe kernels: wrappers and plain versions of ``csrc/probes.cu`` and
+of the flagged masked scores kernel in ``csrc/scores.cu``.
 
 The H100 counterparts of the TPU probes under ``scripts/``, which measure
 where a step of the production kernels goes. The runners that time them
@@ -11,8 +12,9 @@ are in :mod:`spec_viterbi_tpu_torch.probes`.
 - :func:`probe_emsel` (kernel ``svt_probe_emsel``): P emission selects per
   step in one of five schemes, the ladder of
   ``scripts/exp_mxu_precision.py`` (``micro_mxu_prec``);
-- :func:`scores_variant` (kernel ``svt_scores_variant``): the masked scores
-  kernel with compile-time flags, the B1 bodies that
+- :func:`scores_variant` (kernel ``svt_scores_variant``): the production
+  masked scores kernel with compile-time flags (no flag: that kernel
+  itself), the B1 bodies that
   ``exp_roofline.py`` (``_make_bf16_kernel``, ``_make_embatch_kernel``)
   and ``scripts/exp_kernel_variants.py`` (``make_variant_kernel``,
   ``make_shortchain_kernel``) patch into the Pallas decoder.

@@ -2,7 +2,8 @@
 
 The counterparts of the TPU probes under ``scripts/`` (each a function
 that reaches ``pl.pallas_call``), built on the probe kernels of
-``csrc/probes.cu`` (wrappers in :mod:`spec_viterbi_tpu_torch.ops.probes`):
+``csrc/probes.cu`` and the flagged masked kernel of ``csrc/scores.cu``
+(wrappers in :mod:`spec_viterbi_tpu_torch.ops.probes`):
 
 - :mod:`.roofline` (S1, ``scripts/exp_roofline.py``): per-pass costs, the
   speed-of-light sum, bf16 operands, the two-symbol step, staged

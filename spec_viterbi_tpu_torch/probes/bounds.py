@@ -7,12 +7,14 @@ sheet at 700 W:
   byte once, whatever the kernel reads again;
 - f32 adds and mins over 33.45 T/s: one such operation per FP32 lane per
   clock, 132 SMs x 128 lanes x 1.98 GHz, half the 67 TFLOP/s FMA rate
-  (a min-plus step has no multiply to fuse);
-- tensor-core operations (the one-hot selects of ``svt_probe_emsel``)
-  over 989 T/s in bf16 and 495 T/s in tf32, counted as a matmul's
-  2·m·n·k, added to the f32 time.
+  (a min-plus step has no multiply to fuse).
 
-Counts follow each kernel's own loop per (state, step, lane): one op per
+Only the work that the function needs is counted, not what a kernel
+chooses to do for it: the one-hot products of ``svt_probe_emsel``'s
+tensor-core schemes compute a select that one read gives, so they are
+left out of its bound (:func:`emsel_mma_ms` gives their time apart).
+
+Counts follow the recurrence per (state, step, lane): one op per
 candidate add and one per min, one for the emission add; where lanes stop
 early the steps they take are counted, not the most they could take. The
 few special rows patched by one warp are left out (40 of 2,432 rows at
@@ -27,7 +29,7 @@ import dataclasses
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 132 * 128 * 1.98e9
-TENSOR_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12}
+TENSOR_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12}  # dense, H100 SXM data sheet
 F32, I32, I16, BF16 = 4, 4, 2, 2
 
 
@@ -35,14 +37,10 @@ F32, I32, I16, BF16 = 4, 4, 2, 2
 class Work:
     ops: float  # f32 adds and mins
     bytes: float
-    tensor_ops: float = 0.0
-    tensor_type: str = "bf16"
 
     def bound(self) -> tuple[float, str]:
         """(bound in ms, "operations" or "bytes")."""
         op_s = self.ops / F32_OPS_PER_S
-        if self.tensor_ops:
-            op_s += self.tensor_ops / TENSOR_OPS_PER_S[self.tensor_type]
         byte_s = self.bytes / HBM_BYTES_PER_S
         return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
 
@@ -97,11 +95,11 @@ def window_scores(n_diag: int, n_win: int, windows: int, n_global: int, lanes: i
 
 
 def window_path(n_diag: int, n_win: int, windows: int, n_global: int, lanes: int, steps: int,
-                launches: int, em_rows: int) -> Work:
+                launches: int, em_rows: int, block: int) -> Work:
     """``svt_path_window``: the scores window work plus one int16 pointer
-    per interior row, lane and step."""
+    per interior row (``windows`` x ``block`` of them), lane and step."""
     base = window_scores(n_diag, n_win, windows, n_global, lanes, steps, launches, em_rows)
-    return Work(base.ops, base.bytes + steps * lanes * n_global * I16)
+    return Work(base.ops, base.bytes + steps * lanes * windows * block * I16)
 
 
 def probe_pass(cls: str, n: int, lanes: int, steps: int, p: int, e: int = 32) -> Work:
@@ -125,12 +123,19 @@ def probe_pass(cls: str, n: int, lanes: int, steps: int, p: int, e: int = 32) ->
 
 
 def probe_emsel(scheme: str, n: int, lanes: int, steps: int, p: int, e: int = 32) -> Work:
-    """``svt_probe_emsel``: ``v + 0.5`` and a min per select in f32; the
-    mma schemes add 2·e multiply-adds per state, lane, select and term on
-    the tensor cores."""
+    """``svt_probe_emsel``: ``v + 0.5`` and a min per select, in f32,
+    whatever the scheme; the bytes of the scheme's table terms."""
+    terms = {"gather": 1, "tf32": 1, "bf16": 1, "split2": 2, "split3": 3}[scheme]
+    elem = F32 if scheme in ("gather", "tf32") else BF16
+    nbytes = _carry_bytes(n, lanes) + steps * lanes * I32 + terms * e * n * elem
+    return Work((1 + p) * n * lanes * steps, nbytes)
+
+
+def emsel_mma_ms(scheme: str, n: int, lanes: int, steps: int, p: int, e: int = 32) -> float:
+    """The tensor-core time of ``svt_probe_emsel``'s one-hot products at
+    the type's peak: 2·e multiply-adds per state, lane, select and table
+    term (0 for ``gather``). Not part of the bound: the select they
+    compute needs none of them."""
     terms = {"gather": 0, "tf32": 1, "bf16": 1, "split2": 2, "split3": 3}[scheme]
-    elem = BF16 if terms and scheme != "tf32" else F32
-    nbytes = _carry_bytes(n, lanes) + steps * lanes * I32 + max(terms, 1) * e * n * elem
-    count = n * lanes * steps
-    return Work((1 + p) * count, nbytes, 2 * e * terms * p * count,
-                "tf32" if scheme == "tf32" else "bf16")
+    kind = "tf32" if scheme == "tf32" else "bf16"
+    return 2 * e * terms * p * n * lanes * steps / TENSOR_OPS_PER_S[kind] * 1e3

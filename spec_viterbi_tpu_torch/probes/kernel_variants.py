@@ -1,14 +1,15 @@
 """S4: the ablation of ``scripts/exp_kernel_variants.py``, on the H100.
 
-``svt_scores_variant`` is ``svt_scores_masked`` with compile-time flags;
-each ablation drops one component of the step (wrong scores on purpose),
-and its time against the baseline's is that component's cost. Timed on
+``svt_scores_variant`` launches ``svt_scores_masked``'s own kernel
+template (``csrc/scores.cu``) with compile-time flags; each ablation drops
+one component of the step (wrong scores on purpose), and its time against
+the baseline's is that component's cost. Timed on
 the corpus-shaped stand-in at 512 × 3,500, unmasked (a uniform batch), as
 the TPU harness timed its variants:
 
-- ``baseline``: no flag; bit-equal to ``svt_scores_masked``, and its time
-  should match that kernel's, which shows the harness measures the
-  production kernel;
+- ``baseline``: no flag, the very instantiation ``svt_scores_masked``
+  launches; held bit-equal to it, and its time beside that kernel's
+  shows the spread of a timing;
 - ``no_cols``: no dense-column reduces;
 - ``no_em``: one constant emission row (the TPU's ``no_mxu``);
 - ``no_special``: no column reduces, no special-row patch, no middle

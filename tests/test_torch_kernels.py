@@ -434,7 +434,8 @@ def test_window_wrappers_check_inputs(cuda_device):
                                                              device=cuda_device))
 
 
-# ---- the probe kernels (csrc/probes.cu) ---------------------------------
+# ---- the probe kernels (csrc/probes.cu; the flagged masked kernel of
+# csrc/scores.cu) ----------------------------------------------------------
 
 
 def _pass_inputs(n, lanes, steps, device, seed=0):
