@@ -16,68 +16,84 @@ exits non-zero:
    lengths over 200-3,500), write them as ``.ess`` and read them back;
 5. decode through ``ViterbiDecoder(mode="structured", device="cuda")``:
    ``prepare_batch``/``run_batch`` on the uniform set (the FS kernel),
-   ``decode_batch`` on the ragged set (the masked kernel, bucketed) and
-   ``decode`` on one sequence, with the kernel launch counts read around
-   that run;
-6. hold each scores kernel against its plain PyTorch version on the card
-   at the same shapes: bit-equal (``torch.equal``, +inf at the same places);
+   ``decode_batch`` on the ragged set (the planned arm of the masked
+   kernel, bucketed) and ``decode`` on one sequence, with the kernel launch
+   counts read around that run;
+6. hold each scores kernel, both arms of the masked kernel, against its
+   plain PyTorch version on the card at the same shapes: bit-equal
+   (``torch.equal``, +inf at the same places);
 7. hold the plain path and both scores kernels against the numpy oracle on
    4 lanes × 64 symbols: bit-equal;
-8. ``path_main``: ``decode_path_batch`` on both sets (the path and
-   backtrace kernels, 2 uniform calls of 256 lanes and one per ragged
-   bucket) and ``decode_path`` on one sequence (the plain argmin scan on
-   the card), with the launch counts read around that run; paths of the
-   right length and range, scores equal to the scores flow's;
-9. ``path_kernel_vs_plain``: the path kernel against its plain version
-   (carry and backpointers) and the backtrace kernel against its plain
-   version, at one 256-lane uniform call (unmasked) and at the largest
-   ragged bucket (masked);
+8. ``path_main``: ``decode_path_batch`` on both sets (the planned arm of
+   the path kernel and the backtrace kernel, 2 uniform calls of 256 lanes
+   and one per ragged bucket) and ``decode_path`` on one sequence (the
+   plain argmin scan on the card), with the launch counts read around
+   that run; paths of the right length and range, scores equal to the
+   scores flow's;
+9. ``path_kernel_vs_plain``: both arms of the path kernel against their
+   plain versions and each other (carry and backpointers) and the
+   backtrace kernel against its plain version, at one 256-lane uniform
+   call (unmasked) and at the largest ragged bucket (masked);
 10. ``path_oracle``: paths and scores against ``viterbi_path_oracle`` on a
-    prefix of both sets and on a seeded tie-heavy model: bit-equal;
+    prefix of both sets (planned arm) and on a seeded tie-heavy model
+    (generic arm): bit-equal;
 11. ``stream``: the uniform set through ``dec.streaming()`` in chunks of
     999, 1,500 and 1,000 symbols (scores equal to ``run_batch``'s), then
     the ragged set through the path stream with per-lane valid counts and
     a save/load round trip in the middle (paths and scores equal to
-    ``decode_path_batch``'s);
-12. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
+    ``decode_path_batch``'s), the feeds and finalize on the planned arms;
+12. ``generic_main`` and ``generic_kernel_vs_plain``: a model outside the
+    uniform plans (the seeded tie-heavy model at 2,405 states) through
+    ``decode_batch`` and ``decode_path_batch`` of a ragged set, with the
+    launch counts read around that run (the generic arms); both generic
+    kernels against their plain versions on 512 lanes × 511 steps, and
+    the decodes against the oracle on a prefix;
+13. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
     states, offsets (1, 3), 4 symbols) on a local group of 4 shards, chunk
     16: ``FusedTPDecoder.decode_batch`` and ``decode_path_batch`` on a
     uniform (512 × 3,500) and a ragged set (the lengths of step 4), with
     the launch counts read around each call (219 window launches a call,
     one backtrace a path call); scores, paths and the global pointer
     tensor bit-equal to the unsharded kernels';
-13. ``tp_kernel_vs_plain``: both window kernels against their plain
+14. ``tp_kernel_vs_plain``: both window kernels against their plain
     versions on the first 4 chunks, uniform and ragged, and
     ``decode_batch_emulated(check_path_kernel=True)`` on 128 lanes;
-14. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
+15. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
     a prefix and on a seeded tie-heavy banded model: bit-equal;
-15. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
+16. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
     bit-equal to the single-device decode;
-16. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
+17. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
     most 4), bit-equal to the local group; with one card it says so;
-17. time kernel and plain version of the window kernels (the whole TP
+18. time kernel and plain version of the window kernels (the whole TP
     decode, and kernel vs plain on the first 4 chunks, beside the
     unsharded kernels on the same model and lanes);
-18. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
+19. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
     uniform set, with the probe kernels' launch counts read around that
     run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
     their drift verdict, the two-symbol step, staged emissions), S2 (the
     emission-select ladder), S3 (the empty floor at 1, 2 and 4 lanes a
-    CTA; the FS and masked kernels at 128 to 1,024 lanes), S4 (the
-    ablation table);
+    CTA; the FS kernel and both arms of the masked kernel at 128 to 1,024
+    lanes; registers and CTAs an SM of these and of both path arms), S4
+    (the ablation table of the generic masked arm);
     the chain floor of each production kernel's shape; then each probe
     kernel against its plain version on a 64-step slice, every class,
     scheme and flag, bit-equal;
-19. time kernel and plain version of the scores kernels at the uniform
+20. time kernel and plain version of the scores kernels at the uniform
     shape and the path kernels at one 256-lane call (median of 5; the
-    plain path scan on fewer repeats, as its line says); the masked, path
-    and backtrace kernels at each ragged bucket; then ``rank``: per kernel,
-    the sum over one call of its main path of (time - bound), the order
-    in which the kernels lose most against their bounds.
+    plain path scans on fewer repeats, as their lines say), each arm of
+    the masked and path kernels on its own line; both arms of the masked
+    and path kernels and the backtrace kernel at each ragged bucket; then
+    ``rank``: per kernel and arm, the sum over one call of its main path
+    of (time - bound), the order in which the kernels lose most against
+    their bounds (the generic arms on the same calls, marked as off the
+    corpus model's main path).
 
 Every ``kernels`` entry carries its bound (``spec_viterbi_tpu_torch/
 probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
-its bytes over 3.35 TB/s) for the work it was timed on. The line before
+its bytes over 3.35 TB/s, one count of an operator's work whichever arm
+runs it) for the work it was timed on; the planned arms' launches come
+from the corpus model's main path, the generic arms' from
+``generic_main``. The line before
 the card's line is that JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -99,8 +115,10 @@ from spec_viterbi_tpu_torch.probes.common import LANES, REPEATS, STATES_MATCH, T
 PROBE_SLICE = 64  # steps of the probe kernels' kernel-vs-plain slice
 PLAIN_PATH_REPEATS = 2  # the plain path scan takes seconds per call
 STREAM_CHUNKS = (999, 1500, 1000)  # after the first symbol: 3,500 in all
-NO_OTHER_LAUNCHES = {"path": 0, "backtrace": 0, "scores_window": 0, "path_window": 0}
-ZERO_LAUNCHES = {"scores_masked": 0, "scores_fs": 0, **NO_OTHER_LAUNCHES}
+NO_OTHER_LAUNCHES = {"path": 0, "path_planned": 0, "backtrace": 0, "scores_window": 0,
+                     "path_window": 0}
+ZERO_LAUNCHES = {"scores_masked": 0, "scores_masked_planned": 0, "scores_fs": 0, **NO_OTHER_LAUNCHES}
+GENERIC_CHECK_STEPS = 511  # steps of the generic arms' kernel-vs-plain check outside the plans
 # the state-sharded decode's banded model and schedule
 TP_STATES = 2432
 TP_OFFSETS = (1, 3)
@@ -212,6 +230,79 @@ def tp_dist(seed: int, uniform: list, scores, paths, tmp: str) -> None:
         warm = z["seconds"].tolist()
     phase("tp_dist", ran=True, ranks=world, seconds=time.perf_counter() - t0, lanes=len(uniform),
           bit_equal=True, decode_batch_seconds=warm[0], decode_path_batch_seconds=warm[1])
+
+
+def generic_main(seed: int, lengths) -> tuple[dict, dict]:
+    """``generic_main`` and ``generic_kernel_vs_plain``: the generic arms
+    of the masked and path kernels on a model outside the uniform plans
+    (the seeded tie-heavy model at the corpus stand-in's 2,405 states: one
+    diagonal, one dense row and column, three residual entries, no plans).
+    ``decode_batch`` and ``decode_path_batch`` of a ragged set with the
+    lengths ``lengths``, through ``ViterbiDecoder``, with the launch counts
+    read around that run; then both generic kernels against their plain
+    versions on 512 lanes x 511 steps, ragged and unmasked, and the
+    decodes against the oracle on a prefix. Returns the launch counts and
+    the kernels' max abs errors."""
+    import torch
+
+    from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_path_oracle
+    from spec_viterbi_tpu_torch.io import generate_tie_heavy_hmm
+    from spec_viterbi_tpu_torch.ops import fused
+    from spec_viterbi_tpu_torch.utils.batching import bucket_plan
+
+    hmm = generate_tie_heavy_hmm(STATES_MATCH, seed=seed)
+    dec = ViterbiDecoder(hmm, mode="structured", device="cuda")
+    fd = dec._fused
+    check(fd is not None and not fd._fs_ok and fd._scores_arm is fd._masked
+          and fd._path_arm is fd._masked, "the tie-heavy model takes the generic arms")
+    rng = np.random.default_rng(seed + 4)
+    # the last symbol is dead (no state emits it): left out here
+    ragged = [rng.integers(0, hmm.emit_num - 1, size=int(t)).astype(np.int32) for t in lengths]
+    plan = bucket_plan([len(s) for s in ragged], lane_block=fused.BB)
+    calls = sum(-(-len(idx) // max(fused.BB, fd._path_lane_budget(t))) for idx, t in plan)
+    fused.reset_launches()
+    secs = {}
+    t0 = time.perf_counter()
+    scores = dec.decode_batch(ragged)
+    secs["ragged_decode_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = dec.decode_path_batch(ragged)
+    secs["ragged_decode_path_batch"] = time.perf_counter() - t0
+    counts = dict(fused.launches)
+    check(counts == {**ZERO_LAUNCHES, "scores_masked": len(plan), "path": calls, "backtrace": calls},
+          f"the generic arms ran every bucket: {counts}")
+    check(all(np.array_equal(sc, s) for (sc, _), s in zip(paths, scores)), "path scores == scores")
+    check(all(bool(np.isfinite(s).any()) for s in scores), "generic scores reach a state")
+    phase("generic_main", states=hmm.states_num, n=fd.n, seconds=secs, launches=counts,
+          buckets=[[len(i), t] for i, t in plan])
+
+    errs = {"scores_masked": 0.0, "path": 0.0}
+    steps = GENERIC_CHECK_STEPS
+    for name, seqs in (("ragged", [s[: steps + 1] for s in ragged]),
+                       ("uniform", [np.resize(s, steps + 1) for s in ragged])):
+        st, ln, m = fd.prepare(seqs, t_pad=steps + 1)
+        check(m == (name == "ragged"), f"generic check masking, {name}")
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        ln = ln if m else None
+        k = fused.scores_masked(fd._masked, fd.em, v0, st[1:], ln)
+        same, err = equal_with_err(k, fused.scores_masked_plain(fd._masked, fd.em_t, v0, st[1:], ln))
+        check(same, f"generic masked kernel == plain outside the plans, {name}")
+        errs["scores_masked"] = max(errs["scores_masked"], err)
+        k_out, k_src = fused.path(fd._masked, fd.em, v0, st[1:], ln)
+        p_out, p_src = fused.path_plain(fd._masked, fd.em_t, v0, st[1:], ln)
+        same, err = equal_with_err(k_out, p_out)
+        check(same and torch.equal(k_src, p_src), f"generic path kernel == plain outside the plans, {name}")
+        check(torch.equal(k_out, k), "generic path carry == generic scores")
+        errs["path"] = max(errs["path"], err)
+        del k_src, p_src
+    prefix = [s[: 16 * (j + 1)] for j, s in enumerate(ragged[:4])]
+    for s, sc, (psc, p) in zip(prefix, dec.decode_batch(prefix), dec.decode_path_batch(prefix)):
+        want_sc, want_p = viterbi_path_oracle(hmm, s)
+        check(np.array_equal(sc, want_sc) and np.array_equal(psc, want_sc) and np.array_equal(p, want_p),
+              f"generic arms == oracle ({hmm.states_num} states, {len(s)} symbols)")
+    phase("generic_kernel_vs_plain", steps=steps, lanes=len(ragged),
+          **{f"{k}_max_abs_err": e for k, e in errs.items()})
+    return counts, errs
 
 
 def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list, list]:
@@ -365,7 +456,7 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
             backend = torch.distributed.get_backend()
         finally:
             torch.distributed.destroy_process_group()
-    check(dp_counts == {**ZERO_LAUNCHES, "scores_masked": 1, "path": 1, "backtrace": 1},
+    check(dp_counts == {**ZERO_LAUNCHES, "scores_masked_planned": 1, "path_planned": 1, "backtrace": 1},
           f"dp launches {dp_counts}")
     check(all(np.array_equal(g, w) for g, w in zip(dp_scores, scores_r)),
           "DP scores == single-device decode_batch")
@@ -529,9 +620,11 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> list:
     work = {
         "probe_pass": bounds.probe_pass("twosym", N_STATES, LANES, PROBE_SLICE, 0),
         "probe_emsel": bounds.probe_emsel("bf16", N_STATES, LANES, PROBE_SLICE, 2),
-        "scores_variant": bounds.masked_scores(sop.n, len(sop.diag_offsets), len(sop.row_idx),
-                                               len(sop.col_idx), LANES, PROBE_SLICE, lane_steps,
-                                               hmm.emit_num, True),
+        # the operator's one count, whichever kernel runs it
+        "scores_variant": bounds.masked_scores(
+            bounds.operator_step(sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx),
+                                 planned=fd._fs is not None),
+            LANES, PROBE_SLICE, lane_steps, hmm.emit_num, True),
     }
     replaces = {"probe_pass": "scripts/exp_roofline.py:130",
                 "probe_emsel": "scripts/exp_mxu_precision.py:127",
@@ -614,6 +707,7 @@ def main() -> int:
     dec = ViterbiDecoder(hmm, mode="structured", device=dev)
     fd = dec._fused
     check(fd is not None and fd._fs_ok, "the decoder takes the fused kernels, FS class")
+    check(fd._scores_arm is fd._fs and fd._path_arm is fd._fs, "the decoder takes the planned arms")
     fused.reset_launches()
     secs = {}
     t0 = time.perf_counter()
@@ -624,17 +718,17 @@ def main() -> int:
     scores_u = dec.run_batch(handle)
     torch.cuda.synchronize()
     secs["uniform_run_batch"] = time.perf_counter() - t0
-    check(fused.launches == {"scores_masked": 0, "scores_fs": 1, **NO_OTHER_LAUNCHES},
-          "uniform batch ran the FS kernel")
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_fs": 1}, "uniform batch ran the FS kernel")
     t0 = time.perf_counter()
     scores_r = dec.decode_batch(ragged)
     secs["ragged_decode_batch"] = time.perf_counter() - t0
-    check(fused.launches["scores_masked"] == len(plan), "every ragged bucket ran the masked kernel")
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_fs": 1, "scores_masked_planned": len(plan)},
+          "every ragged bucket ran the planned arm of the masked kernel")
     t0 = time.perf_counter()
     scores_1 = dec.decode(uniform[0])
     secs["decode_one"] = time.perf_counter() - t0
     counts = dict(fused.launches)
-    check(counts["scores_fs"] > 0 and counts["scores_masked"] > 0, "both kernels launched")
+    check(counts["scores_fs"] > 0 and counts["scores_masked_planned"] > 0, "both kernels launched")
     n_real = hmm.states_num
     u_np = scores_u.cpu().numpy()
     check(u_np.shape == (LANES, fd.n), "uniform scores shape")
@@ -655,20 +749,25 @@ def main() -> int:
     same, err_fs = equal_with_err(k_fs, p_fs)
     check(same, "FS kernel == plain at 512 x 3500")
     check(torch.equal(k_fs.T, scores_u), "FS kernel == run_batch output")
-    err_masked = 0.0
+    # both arms of the masked kernel at each ragged bucket: the planned arm
+    # (fd._fs) is what decode_batch ran, the generic arm (fd._masked) must
+    # give the same scores
+    err_masked = {"scores_masked_planned": 0.0, "scores_masked": 0.0}
     for idx, t_q in plan:
         st, ln, m = fd.prepare([ragged[i] for i in idx], t_pad=t_q)
         check(m, "ragged bucket is masked")
         bv0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
-        k = fused.scores_masked(fd._masked, fd.em, bv0, st[1:], ln)
-        p = fused.scores_masked_plain(fd._masked, fd.em_t, bv0, st[1:], ln)
-        same, err = equal_with_err(k, p)
-        check(same, f"masked kernel == plain, bucket of {len(idx)} lanes x {t_q}")
-        err_masked = max(err_masked, err)
-        k_np = k.T.cpu().numpy()
-        check(all(np.array_equal(scores_r[i], k_np[j, :n_real]) for j, i in enumerate(idx)),
-              "decode_batch output == masked kernel")
-    phase("kernel_vs_plain", fs_max_abs_err=err_fs, masked_max_abs_err=err_masked)
+        for name, t in (("scores_masked_planned", fd._fs), ("scores_masked", fd._masked)):
+            k = fused.scores_masked(t, fd.em, bv0, st[1:], ln)
+            p = fused.scores_masked_plain(t, fd.em_t, bv0, st[1:], ln)
+            same, err = equal_with_err(k, p)
+            check(same, f"{name} kernel == plain, bucket of {len(idx)} lanes x {t_q}")
+            err_masked[name] = max(err_masked[name], err)
+            k_np = k.T.cpu().numpy()
+            check(all(np.array_equal(scores_r[i], k_np[j, :n_real]) for j, i in enumerate(idx)),
+                  f"decode_batch output == {name} kernel")
+    phase("kernel_vs_plain", fs_max_abs_err=err_fs,
+          **{f"{k}_max_abs_err": e for k, e in err_masked.items()})
 
     # ---- plain path and kernels against the numpy oracle on a prefix ---
     small = [s[:64] for s in uniform[:4]]
@@ -680,7 +779,7 @@ def main() -> int:
     check(all(np.array_equal(g, w) for g, w in zip(plain_got, want)), "plain path == oracle")
     fused.reset_launches()
     kern_got = dec.decode_batch(small) + dec.decode_batch(small_ragged)
-    check(fused.launches == {"scores_masked": 1, "scores_fs": 1, **NO_OTHER_LAUNCHES},
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_masked_planned": 1, "scores_fs": 1},
           "prefix check ran both kernels")
     check(all(np.array_equal(g, w) for g, w in zip(kern_got, want)), "kernels == oracle")
     phase("oracle", lanes=len(want), bit_equal=True)
@@ -701,8 +800,9 @@ def main() -> int:
     path_1 = dec.decode_path(uniform[0])
     psecs["decode_path_one"] = time.perf_counter() - t0
     path_counts = dict(fused.launches)
-    check(path_counts["path"] == want_calls and path_counts["backtrace"] == want_calls,
-          f"every decode_path_batch call ran the path and backtrace kernels ({want_calls} calls)")
+    check(path_counts == {**ZERO_LAUNCHES, "path_planned": want_calls, "backtrace": want_calls},
+          f"every decode_path_batch call ran the planned path arm and the backtrace kernel "
+          f"({want_calls} calls)")
     for seqs, got in ((uniform, paths_u), (ragged, paths_r)):
         check(len(got) == len(seqs), "one path per sequence")
         for s, (_, p) in zip(seqs, got):
@@ -719,7 +819,8 @@ def main() -> int:
     # ---- the path kernels against their plain versions -----------------
     half = budget(T_LEN)
     big_idx, big_t = max(plan, key=lambda e: e[1])
-    err_path = err_bt = 0.0
+    err_path = {"path_planned": 0.0, "path": 0.0}
+    err_bt = 0.0
     plain_path_s = {}
     for name, seqs, t_pad in (
         ("uniform", uniform[:half], T_LEN),
@@ -729,15 +830,26 @@ def main() -> int:
         check(m == (name == "ragged_bucket"), f"{name} call masking")
         pv0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
         lens = ln if m else None
-        k_out, k_src = fused.path(fd._masked, fd.em, pv0, st[1:], lens)
-        t0 = time.perf_counter()
-        p_out, p_src = fused.path_plain(fd._masked, fd.em_t, pv0, st[1:], lens)
-        torch.cuda.synchronize()
-        plain_path_s[name] = time.perf_counter() - t0
-        same, err = equal_with_err(k_out, p_out)
-        check(same, f"path kernel carry == plain, {name} ({len(seqs)} x {st.shape[0] - 1})")
-        check(torch.equal(k_src, p_src), f"path kernel backpointers == plain, {name}")
-        err_path = max(err_path, err)
+        # the planned arm first (what decode_path_batch ran), then the
+        # generic arm on the same inputs: both equal their plain versions
+        # and each other
+        srcs = []
+        for arm, t in (("path_planned", fd._fs), ("path", fd._masked)):
+            k_out, k_src = fused.path(t, fd.em, pv0, st[1:], lens)
+            t0 = time.perf_counter()
+            p_out, p_src = fused.path_plain(t, fd.em_t, pv0, st[1:], lens)
+            torch.cuda.synchronize()
+            plain_path_s[f"{arm}_{name}"] = time.perf_counter() - t0
+            same, err = equal_with_err(k_out, p_out)
+            check(same, f"{arm} kernel carry == plain, {name} ({len(seqs)} x {st.shape[0] - 1})")
+            check(torch.equal(k_src, p_src), f"{arm} kernel backpointers == plain, {name}")
+            err_path[arm] = max(err_path[arm], err)
+            del p_src
+            srcs.append((k_out, k_src))
+        check(torch.equal(srcs[0][0], srcs[1][0]) and torch.equal(srcs[0][1], srcs[1][1]),
+              f"planned path arm == generic path arm, {name}")
+        k_out, k_src = srcs[0]
+        del srcs
         last = torch.argmin(k_out, dim=0).to(torch.int32)
         k_rev = fused.backtrace(k_src, last)
         p_rev = fused.backtrace_plain(k_src, last)
@@ -747,9 +859,9 @@ def main() -> int:
             check(torch.equal(k_out.T, scores_u[:half]), "path kernel carry == FS kernel scores")
             bt_args = (k_src, last)
             path_args = (pv0, st[1:])
-        del k_src, p_src, k_rev, p_rev
-    phase("path_kernel_vs_plain", path_max_abs_err=err_path, backtrace_max_abs_err=err_bt,
-          plain_path_seconds=plain_path_s)
+        del k_src, k_rev, p_rev
+    phase("path_kernel_vs_plain", backtrace_max_abs_err=err_bt, plain_path_seconds=plain_path_s,
+          **{f"{k}_max_abs_err": e for k, e in err_path.items()})
 
     # ---- paths against the numpy path oracle ---------------------------
     tie_hmm = generate_tie_heavy_hmm(300, seed=args.seed)
@@ -771,7 +883,8 @@ def main() -> int:
             want_sc, want_p = viterbi_path_oracle(model, s)
             check(np.array_equal(sc, want_sc) and np.array_equal(p, want_p),
                   f"path decode == oracle ({model.states_num} states, {len(s)} symbols)")
-    check(fused.launches["path"] == len(cases), "the oracle checks ran the path kernel")
+    check(fused.launches["path_planned"] == 2 and fused.launches["path"] == 2,
+          "the oracle checks ran both arms of the path kernel")
     phase("path_oracle", lanes=sum(len(c[2]) for c in cases), bit_equal=True)
 
     # ---- streaming on the kernels ----------------------------------------
@@ -788,8 +901,8 @@ def main() -> int:
         pos += w
     got = eng.stream_scores(st)
     ssecs["scores_stream"] = time.perf_counter() - t0
-    check(fused.launches == {"scores_masked": len(STREAM_CHUNKS), "scores_fs": 0, **NO_OTHER_LAUNCHES},
-          "one masked launch per feed")
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_masked_planned": len(STREAM_CHUNKS)},
+          "one launch of the planned masked arm per feed")
     check(np.array_equal(got, u_np[:, :n_real]), "stream scores == run_batch scores (masked == FS)")
     stream_counts = {"scores": dict(fused.launches)}
 
@@ -811,12 +924,14 @@ def main() -> int:
             check(torch.equal(loaded.carry, st.carry) and len(loaded.chunks) == 2,
                   "stream_load restores the saved state")
             st = loaded
-    check(fused.launches["scores_masked"] == len(STREAM_CHUNKS), "one masked launch per path feed")
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_masked_planned": len(STREAM_CHUNKS)},
+          "one launch of the planned masked arm per path feed")
     scores_s, paths_s = eng.stream_path_finalize(st)
     torch.cuda.synchronize()
     ssecs["path_stream"] = time.perf_counter() - t0
-    check(fused.launches["path"] == len(STREAM_CHUNKS) and fused.launches["backtrace"] == len(STREAM_CHUNKS),
-          "finalize ran one path and one backtrace launch per chunk")
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_masked_planned": len(STREAM_CHUNKS),
+                             "path_planned": len(STREAM_CHUNKS), "backtrace": len(STREAM_CHUNKS)},
+          "finalize ran one planned path and one backtrace launch per chunk")
     check(paths_s.shape == (LANES, T_LEN), "path stream shape")
     for i, (sc, p) in enumerate(paths_r):
         check(np.array_equal(scores_s[i], sc) and np.array_equal(paths_s[i, : lens_r[i]], p),
@@ -824,18 +939,23 @@ def main() -> int:
     stream_counts["path"] = dict(fused.launches)
     phase("stream", seconds=ssecs, launches=stream_counts, chunks=list(STREAM_CHUNKS))
 
+    generic_counts, generic_errs = generic_main(args.seed, lengths)
     window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r)
     probe_kernels = probes_phase(args.seed, card, hmm, fd, seqs_t, window_floors)
 
-    # ---- times at the uniform shape ------------------------------------
+    # ---- times at the uniform shape: each arm of the masked and path
+    # kernels on the corpus model's inputs (the planned arms are what its
+    # main path runs; the generic arms would run the same calls without
+    # the plans) ------------------------------------------------------------
     steps = obs.shape[0]
     sop = fd.sop
-    shape = (sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx))
+    # one count of the operator's work, whichever kernel or arm runs it
+    op_step = bounds.operator_step(sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx),
+                                   planned=fd._fs is not None)
+    arm = {"scores_masked": fd._masked, "scores_masked_planned": fd._fs,
+           "path": fd._masked, "path_planned": fd._fs}
     bound = {
-        "scores_fs": bounds.fs_scores(sop.n, LANES, steps, hmm.emit_num).bound(),
-        "scores_masked": bounds.masked_scores(*shape, LANES, steps, LANES * steps, hmm.emit_num,
-                                              True).bound(),
-        "path": bounds.path(*shape, half, steps, half * steps, hmm.emit_num, False).bound(),
+        "scores_fs": bounds.fs_scores(op_step, LANES, steps, hmm.emit_num).bound(),
         "backtrace": bounds.backtrace(half, steps).bound(),
     }
     timed = {
@@ -843,11 +963,14 @@ def main() -> int:
             median_ms(lambda: fused.scores_fs(fd._fs, fd.em, v0, obs)),
             median_ms(lambda: fused.scores_fs_plain(fd._fs, fd.em_t, v0, obs)),
         ),
-        "scores_masked": (
-            median_ms(lambda: fused.scores_masked(fd._masked, fd.em, v0, obs, lens_t)),
-            median_ms(lambda: fused.scores_masked_plain(fd._masked, fd.em_t, v0, obs, lens_t)),
-        ),
     }
+    for name in ("scores_masked_planned", "scores_masked"):
+        bound[name] = bounds.masked_scores(op_step, LANES, steps, LANES * steps, hmm.emit_num,
+                                           True).bound()
+        timed[name] = (
+            median_ms(lambda: fused.scores_masked(arm[name], fd.em, v0, obs, lens_t)),
+            median_ms(lambda: fused.scores_masked_plain(arm[name], fd.em_t, v0, obs, lens_t)),
+        )
     for name, (ms, plain_ms) in timed.items():
         phase("time", kernel=name, card=card, lanes=LANES, steps=steps,
               ms=ms, us_per_step=ms * 1e3 / steps, symbols_per_s=LANES * T_LEN / (ms / 1e3),
@@ -855,39 +978,43 @@ def main() -> int:
               plain_symbols_per_s=LANES * T_LEN / (plain_ms / 1e3),
               bound_ms=bound[name][0], bound_by=bound[name][1])
     pv0, pobs = path_args
-    timed["path"] = (
-        median_ms(lambda: fused.path(fd._masked, fd.em, pv0, pobs, None)),
-        median_ms(lambda: fused.path_plain(fd._masked, fd.em_t, pv0, pobs, None),
-                  repeats=PLAIN_PATH_REPEATS),
-    )
+    for name in ("path_planned", "path"):
+        bound[name] = bounds.path(op_step, half, steps, half * steps, hmm.emit_num, False).bound()
+        timed[name] = (
+            median_ms(lambda: fused.path(arm[name], fd.em, pv0, pobs, None)),
+            median_ms(lambda: fused.path_plain(arm[name], fd.em_t, pv0, pobs, None),
+                      repeats=PLAIN_PATH_REPEATS),
+        )
     timed["backtrace"] = (
         median_ms(lambda: fused.backtrace(*bt_args)),
         median_ms(lambda: fused.backtrace_plain(*bt_args)),
     )
-    for name in ("path", "backtrace"):
+    for name in ("path_planned", "path", "backtrace"):
         ms, plain_ms = timed[name]
         phase("time", kernel=name, card=card, lanes=half, steps=steps, ms=ms,
               us_per_step=ms * 1e3 / steps, repeats=REPEATS, plain_ms=plain_ms,
               plain_us_per_step=plain_ms * 1e3 / steps,
-              plain_repeats=PLAIN_PATH_REPEATS if name == "path" else REPEATS,
+              plain_repeats=REPEATS if name == "backtrace" else PLAIN_PATH_REPEATS,
               bound_ms=bound[name][0], bound_by=bound[name][1])
 
     # ---- each kernel's loss against its bound on its main path: a uniform
-    # run_batch (FS); a ragged decode_batch (masked, one launch a bucket); a
-    # uniform and a ragged decode_path_batch (path and backtrace, 2 + 4
-    # launches); a TP decode_batch and a 256-lane TP decode_path_batch (219
-    # window launches each; the path decode's time holds its backtrace).
-    # The ragged buckets are timed one by one.
-    per_call = {name: [0, 0.0, 0.0] for name in ("scores_fs", "scores_masked", "path", "backtrace")}
+    # run_batch (FS); a ragged decode_batch (the masked kernel, one launch a
+    # bucket); a uniform and a ragged decode_path_batch (path and backtrace,
+    # 2 + 4 launches); a TP decode_batch and a 256-lane TP decode_path_batch
+    # (219 window launches each; the path decode's time holds its
+    # backtrace). Each arm of the masked and path kernels is its own entry,
+    # on the same calls. The ragged buckets are timed one by one.
+    per_call = {name: [0, 0.0, 0.0] for name in ("scores_fs", *arm, "backtrace")}
 
     def add(name, launches, ms, work):
         per_call[name][0] += launches
         per_call[name][1] += launches * ms
         per_call[name][2] += launches * work.bound()[0]
 
-    add("scores_fs", 1, timed["scores_fs"][0], bounds.fs_scores(sop.n, LANES, steps, hmm.emit_num))
+    add("scores_fs", 1, timed["scores_fs"][0], bounds.fs_scores(op_step, LANES, steps, hmm.emit_num))
     calls = -(-LANES // max(fused.BB, half))
-    add("path", calls, timed["path"][0], bounds.path(*shape, half, steps, half * steps, hmm.emit_num, False))
+    for name in ("path_planned", "path"):
+        add(name, calls, timed[name][0], bounds.path(op_step, half, steps, half * steps, hmm.emit_num, False))
     add("backtrace", calls, timed["backtrace"][0], bounds.backtrace(half, steps))
     bucket_times = []
     for idx, t_q in plan:
@@ -895,32 +1022,45 @@ def main() -> int:
         bv0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
         b_steps, b_lanes = st.shape[0] - 1, len(idx)
         lane_steps = int((ln.long() - 1).clamp(0, b_steps).sum())
-        ms_m = median_ms(lambda: fused.scores_masked(fd._masked, fd.em, bv0, st[1:], ln))
-        ms_p = median_ms(lambda: fused.path(fd._masked, fd.em, bv0, st[1:], ln))
-        out, src = fused.path(fd._masked, fd.em, bv0, st[1:], ln)
+        row = {"lanes": b_lanes, "steps": b_steps}
+        for name, t in arm.items():
+            if name.startswith("path"):
+                ms = median_ms(lambda: fused.path(t, fd.em, bv0, st[1:], ln))
+                work = bounds.path(op_step, b_lanes, b_steps, lane_steps, hmm.emit_num, True)
+            else:
+                ms = median_ms(lambda: fused.scores_masked(t, fd.em, bv0, st[1:], ln))
+                work = bounds.masked_scores(op_step, b_lanes, b_steps, lane_steps, hmm.emit_num, True)
+            add(name, 1, ms, work)
+            row[f"{name}_ms"] = ms
+        out, src = fused.path(fd._fs, fd.em, bv0, st[1:], ln)
         last = torch.argmin(out, dim=0).to(torch.int32)
-        ms_b = median_ms(lambda: fused.backtrace(src, last))
+        row["backtrace_ms"] = median_ms(lambda: fused.backtrace(src, last))
         del out, src
-        add("scores_masked", 1, ms_m, bounds.masked_scores(*shape, b_lanes, b_steps, lane_steps,
-                                                           hmm.emit_num, True))
-        add("path", 1, ms_p, bounds.path(*shape, b_lanes, b_steps, lane_steps, hmm.emit_num, True))
-        add("backtrace", 1, ms_b, bounds.backtrace(b_lanes, b_steps))
-        bucket_times.append({"lanes": b_lanes, "steps": b_steps, "scores_masked_ms": ms_m,
-                             "path_ms": ms_p, "backtrace_ms": ms_b})
+        add("backtrace", 1, row["backtrace_ms"], bounds.backtrace(b_lanes, b_steps))
+        bucket_times.append(row)
     phase("time", kernel="ragged_buckets", card=card, buckets=bucket_times)
     for e in window_kernels:
         per_call[e["name"]] = [e["decode_launches"], e["decode_ms"], e["decode_bound_ms"]]
     rank = sorted(((name, n, ms, b, ms - b) for name, (n, ms, b) in per_call.items()),
                   key=lambda r: -r[4])
+    on_main = {"scores_masked": False, "path": False}  # the corpus main path runs the planned arms
     phase("rank", card=card, by="sum over a main path's launches of (time - bound), ms",
-          order=[{"name": name, "launches": n, "ms": ms, "bound_ms": b, "loss_ms": loss}
+          order=[{"name": name, "launches": n, "ms": ms, "bound_ms": b, "loss_ms": loss,
+                  "on_corpus_main_path": on_main.get(name, True)}
                  for name, n, ms, b, loss in rank])
 
+    # launches: the planned arms' from the corpus model's main path, the
+    # generic arms' from generic_main's
     entries = (
         ("scores_fs", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:360", counts, err_fs, LANES),
-        ("scores_masked", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:203", counts, err_masked,
-         LANES),
-        ("path", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:490", path_counts, err_path, half),
+        ("scores_masked_planned", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:203", counts,
+         err_masked["scores_masked_planned"], LANES),
+        ("scores_masked", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:203", generic_counts,
+         max(err_masked["scores_masked"], generic_errs["scores_masked"]), LANES),
+        ("path_planned", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:490", path_counts,
+         err_path["path_planned"], half),
+        ("path", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:490", generic_counts,
+         max(err_path["path"], generic_errs["path"]), half),
         ("backtrace", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:695", path_counts, err_bt, half),
     )
     kernels = [

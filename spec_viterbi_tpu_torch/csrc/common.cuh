@@ -1,7 +1,8 @@
 // Shared by the kernels of csrc/: block shape, descriptor caps, the
-// descriptor of a structured operator, and the per-step device helpers of
-// the scores and path kernels. ops/_build.py mirrors the caps and
-// ScoresDesc field for field and checks the struct's size at load time.
+// descriptors of a structured operator (generic and planned), and the
+// per-step device helpers of the scores and path kernels. ops/_build.py
+// mirrors the caps, ScoresDesc and FsDesc field for field and checks the
+// structs' sizes at load time.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,10 +38,55 @@ struct ScoresDesc {
   int sp_row[MAX_SPECIAL];
 };
 
+// Special-row flags of the planned descriptor.
+#define SP_USE_ACC 1  // start from the bulk candidate (else only the listed ones)
+#define SP_SHARED 2   // row feeds the next step's shared column min
+
+// Flags of the planned per-state byte table.
+#define ST_SHARED 1   // in the shared column support
+#define ST_BULK 2     // shared and not special: reduced inside the bulk pass
+
+// One operator of the uniform plans (single diagonal d, uniform dense rows
+// as scalar candidates, the dense columns as one shared min plus scalar
+// fixes), flattened by ops/fused.py FsTables: every special row (column
+// target, row-plan fix, recomputed row) takes the min of the bulk
+// candidate (SP_USE_ACC), its scalar candidates cand_* in
+// [sp_begin[s], sp_begin[s+1]) and sp_rmin_base[s] + the shared min. The
+// fields after cand_val serve the path kernel: n_real bounds the uniform
+// candidate to the real states (a padding row then points to 0, as the
+// generic step has it), col_base[c] is dense column c's base and sp_col[s]
+// the column whose target special row s is (-1 for none).
+struct FsDesc {
+  int n, d, n_uni, n_special;
+  int uni_src[MAX_UNI];
+  float uni_val[MAX_UNI];
+  int sp_row[MAX_SPECIAL];
+  int sp_flags[MAX_SPECIAL];
+  float sp_rmin_base[MAX_SPECIAL];  // +inf where the row has no column plan entry
+  int sp_begin[MAX_SPECIAL + 1];    // candidate range of each special row
+  int cand_src[MAX_CANDS];
+  float cand_val[MAX_CANDS];
+  int n_real, n_col;
+  float col_base[MAX_COL];
+  int sp_col[MAX_SPECIAL];
+};
+
 // Dynamic shared memory above 48 KB must be opted into per kernel.
 static inline int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Registers a thread and resident CTAs an SM of kernel `fn` with `smem`
+// bytes of dynamic shared memory, as the card reports them.
+static inline int occupancy_of(const void* fn, size_t smem, int* regs, int* ctas_per_sm) {
+  int rc = set_smem(fn, smem);
+  if (rc) return rc;
+  cudaFuncAttributes attr;
+  rc = (int)cudaFuncGetAttributes(&attr, fn);
+  if (rc) return rc;
+  *regs = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, SVT_THREADS, smem);
 }
 
 // Steps lane b takes out of `steps`: it freezes once step t+1 reaches its
@@ -55,6 +101,13 @@ __device__ __forceinline__ float warp_min(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
+}
+
+// An upper bound of ulp(x) for any float x: |x| * 2^-23 rounded up for a
+// normal x (whose ulp is 2^(e-23) with 2^e <= |x|), 2^-149 for a subnormal
+// or zero, +inf for an infinite x.
+__device__ __forceinline__ float ulp_bound(float x) {
+  return fmaxf(__fmul_ru(fabsf(x), 0x1p-23f), 0x1p-149f);
 }
 
 // An operand value as f32: f32 tables as they are, bf16 tables (the

@@ -5,7 +5,11 @@
 //                  _make_path_kernel: the scores recurrence of
 //                  svt_scores_masked, tracking (value, source) pairs, and
 //                  writing the winning source of every (step, lane, state)
-//                  as int16 into src[T-1, B, n].
+//                  as int16 into src[T-1, B, n]. The generic arm, for any
+//                  fused-eligible operator.
+//   svt_path_planned
+//                  the same function for the operators with both uniform
+//                  plans (the FS class): the planned arm, below.
 //   svt_backtrace  replaces spec_viterbi_tpu/ops/fused_pallas.py::
 //                  _backtrace_kernel: the reverse walk through src from a
 //                  boundary state, one thread per lane.
@@ -144,6 +148,211 @@ path_kernel(const ScoresDesc desc, const float* __restrict__ dv, const float* __
   for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
 }
 
+// The planned arm of svt_path: the FS kernel's step (csrc/scores.cu) with
+// (value, source) pairs, for operators with both uniform plans.
+//
+// - A bulk row takes the pair min of its diagonal candidate (i - d) and
+//   the uniform rows' scalar pair (ub, us), the latter only on real rows:
+//   on a padding row no candidate is finite and the pointer is 0, as the
+//   generic step has it.
+// - The special rows (column targets, row-plan fixes, recomputed rows) are
+//   the flattened table of FsDesc; the last warp, which has the fewest
+//   bulk rows, takes each one's bulk pair, scalar candidates and emission
+//   before the middle barrier (they need only the previous carry), so
+//   after the barrier it merges the column candidates and stores.
+// - Dense column c is exact by two passes. Its shared part's value is
+//   M_c = fl(base_c + m), m the min of the carry over the shared support,
+//   taken from v_new at the end of the previous step as the FS kernel
+//   does (f32 rounding is monotone). Its source is the LOWEST shared row i
+//   with fl(base_c + cur[i]) == M_c, which is not the argmin of cur: two
+//   carries 2^-12 apart near 4096 give one sum with a column base of 1.0,
+//   and the oracle takes the lower row. This step's bulk pass finds it: a
+//   row that matches takes a shared-memory atomicMin on the column's slot,
+//   which the patch reads after the barrier. Only a row near the min can
+//   match (b + x and b + m both round to M_c, so x - m <= ulp(M_c)), so a
+//   row with x > fl_ru(m + max_c ulp bound) is skipped with one compare
+//   and the atomics are few. While m is +inf, M_c is too and is never
+//   adopted, so no row is tested. take() then merges (M_c, i_c) with the
+//   column's scalar candidates under the tie rule, so the result is the
+//   generic step's, bit for bit.
+// - A thread takes two neighbouring rows at a time, so their two int16
+//   pointers go out as one 32-bit store (n must be even), and the loop is
+//   unrolled by two so the loads of one pair overlap the last's chain.
+//
+// The pointer format is the generic arm's: src[T-1, B, n] int16, identity
+// pointers on frozen steps.
+//
+// What bounds it is the chain of the FS step: two barriers a step, the
+// patch between them. On an H100 the generic arm spends 3.2 of 8.4 us/step
+// at 256 lanes in its warp-0 patch (global reads and the 8-warp pair
+// merge of each column after the barrier), 2.5 in the per-row pair
+// compare of the columns and 1.0 in the pointer stores. Here the pair
+// stores cost nothing measurable; a per-thread column index reduced by
+// redux.sync cost 0.45 us/step against the atomics, the patch on warp 0
+// 0.33 against the last warp, one loop iteration at a time 0.57 against
+// two (PERF.md).
+template <int C_CAP>
+__global__ void __launch_bounds__(SVT_THREADS)
+path_planned_kernel(const FsDesc desc, const float* __restrict__ dv,
+                    const unsigned char* __restrict__ flags, const float* __restrict__ em,
+                    const float* __restrict__ v0, const int* __restrict__ obs,
+                    const int* __restrict__ lengths, float* __restrict__ out,
+                    short* __restrict__ bp, int batch, int steps) {
+  static_assert(MAX_SPECIAL <= 64, "the patch warp holds at most two special rows a lane");
+  constexpr int kPatchWarp = SVT_WARPS - 1;
+  extern __shared__ float carry[];  // [2][n]
+  __shared__ float red[SVT_WARPS];
+  __shared__ int col_src[C_CAP];  // i_c of this step, INT_MAX until a row matches
+  __shared__ float shared_min;    // m of the step about to run
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  const int n = desc.n, d = desc.d, n_real = desc.n_real, n_col = desc.n_col;
+  if (tid < C_CAP) col_src[tid] = INT_MAX;
+
+  // the shared column min of the incoming carry seeds the first step
+  float part = INFINITY;
+  for (int i = tid; i < n; i += SVT_THREADS) {
+    const float v = v0[(size_t)i * batch + b];
+    carry[i] = v;
+    if (flags[i] & ST_SHARED) part = fminf(part, v);
+  }
+  part = warp_min(part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  if (warp == 0) {
+    const float m = warp_min(lane < SVT_WARPS ? red[lane] : INFINITY);
+    if (lane == 0) shared_min = m;
+  }
+  __syncthreads();
+  const int my_steps = lane_steps(lengths, b, steps);
+
+  float* cur = carry;
+  float* nxt = carry + n;
+  for (int t = 0; t < my_steps; ++t) {
+    const float* em_row = em + (size_t)obs[(size_t)t * batch + b] * n;
+    short* bp_row = bp + ((size_t)t * batch + b) * n;
+    // read by every thread before the middle barrier; the patch warp
+    // writes the next step's after it
+    const float m = shared_min;
+    float ub = INFINITY;
+    int us = INT_MAX;
+    for (int k = 0; k < desc.n_uni; ++k)
+      take(ub, us, desc.uni_val[k] + cur[desc.uni_src[k]], desc.uni_src[k]);
+    auto row_pair = [&](int i, float& u, int& s) {
+      u = INFINITY;
+      s = INT_MAX;
+      const int j = i - d;
+      if (j >= 0 && j < n) take(u, s, dv[i] + cur[j], j);
+      if (i < n_real) take(u, s, ub, us);
+    };
+    float cm[C_CAP];
+    float slack = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C_CAP; ++c) {
+      cm[c] = desc.col_base[c] + m;
+      if (c < n_col) slack = fmaxf(slack, ulp_bound(cm[c]));
+    }
+    const float near = m < INFINITY ? __fadd_ru(m, slack) : -INFINITY;
+
+    part = INFINITY;
+#pragma unroll 2
+    for (int i = 2 * tid; i < n; i += 2 * SVT_THREADS) {
+      float u0, u1;
+      int s0, s1;
+      row_pair(i, u0, s0);
+      row_pair(i + 1, u1, s1);
+      const float vn0 = em_row[i] + u0, vn1 = em_row[i + 1] + u1;
+      nxt[i] = vn0;
+      nxt[i + 1] = vn1;
+      reinterpret_cast<short2*>(bp_row)[i >> 1] =
+          make_short2((short)(u0 < INFINITY ? s0 : 0), (short)(u1 < INFINITY ? s1 : 0));
+      const unsigned char f0 = flags[i], f1 = flags[i + 1];
+      if (f0 & ST_BULK) part = fminf(part, vn0);
+      if (f1 & ST_BULK) part = fminf(part, vn1);
+      // the shared rows whose sum reaches M_c; the lowest wins the min
+      const float x0 = cur[i], x1 = cur[i + 1];
+      const bool near0 = (f0 & ST_SHARED) && x0 <= near;
+      const bool near1 = (f1 & ST_SHARED) && x1 <= near;
+      if (near0 || near1) {
+#pragma unroll
+        for (int c = 0; c < C_CAP; ++c) {
+          if (c < n_col) {
+            if (near0 && desc.col_base[c] + x0 == cm[c])
+              atomicMin(&col_src[c], i);
+            else if (near1 && desc.col_base[c] + x1 == cm[c])
+              atomicMin(&col_src[c], i + 1);
+          }
+        }
+      }
+    }
+
+    // the patch warp takes what its special rows need of the previous
+    // carry now
+    float pu[2], pe[2];
+    int ps[2];
+    if (warp == kPatchWarp) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int s = lane + 32 * k;
+        pu[k] = INFINITY;
+        ps[k] = INT_MAX;
+        pe[k] = INFINITY;
+        if (s < desc.n_special) {
+          const int r = desc.sp_row[s];
+          if (desc.sp_flags[s] & SP_USE_ACC) row_pair(r, pu[k], ps[k]);
+          for (int c = desc.sp_begin[s]; c < desc.sp_begin[s + 1]; ++c)
+            take(pu[k], ps[k], desc.cand_val[c] + cur[desc.cand_src[c]], desc.cand_src[c]);
+          pe[k] = em_row[r];
+        }
+      }
+    }
+
+    part = warp_min(part);
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+
+    if (warp == kPatchWarp) {
+      int ic[C_CAP];
+#pragma unroll
+      for (int c = 0; c < C_CAP; ++c) ic[c] = col_src[c];
+      // every lane has its i_c: reset the slots for the next step, whose
+      // atomics come after the end barrier
+      __syncwarp();
+      if (lane < n_col) col_src[lane] = INT_MAX;
+      float r_next = lane < SVT_WARPS ? red[lane] : INFINITY;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int s = lane + 32 * k;
+        if (s < desc.n_special) {
+          const int r = desc.sp_row[s];
+          float u = pu[k];
+          int src = ps[k];
+          const int col = desc.sp_col[s];
+#pragma unroll
+          for (int c = 0; c < C_CAP; ++c)
+            if (c == col) take(u, src, desc.sp_rmin_base[s] + m, ic[c]);
+          const float val = pe[k] + u;
+          nxt[r] = val;
+          bp_row[r] = (short)(u < INFINITY ? src : 0);
+          if (desc.sp_flags[s] & SP_SHARED) r_next = fminf(r_next, val);
+        }
+      }
+      r_next = warp_min(r_next);
+      if (lane == 0) shared_min = r_next;
+    }
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  // frozen steps keep the carry and store identity pointers
+  for (int t = my_steps; t < steps; ++t) {
+    short2* bp_row = reinterpret_cast<short2*>(bp + ((size_t)t * batch + b) * n);
+    for (int i = 2 * tid; i < n; i += 2 * SVT_THREADS) bp_row[i >> 1] = make_short2((short)i, (short)(i + 1));
+  }
+  for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
+}
+
 // rev[t, b] = src[t, b, rev[t + 1, b]], starting from rev[steps, b] =
 // boundary[b]; rev[t, b] is lane b's state at position t.
 __global__ void backtrace_kernel(const short* __restrict__ src, const int* __restrict__ boundary,
@@ -172,6 +381,31 @@ int svt_path(const ScoresDesc* desc, const float* dv, const float* rv, const flo
   kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(*desc, dv, rv, cv, em, v0, obs,
                                                               lengths, out, bp, batch, steps);
   return (int)cudaGetLastError();
+}
+
+// The planned arm of svt_path; desc->n must be even.
+int svt_path_planned(const FsDesc* desc, const float* dv, const unsigned char* flags,
+                     const float* em, const float* v0, const int* obs, const int* lengths,
+                     float* out, short* bp, int batch, int steps, void* stream) {
+  if (desc->n % 2 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)desc->n * sizeof(float);
+  const int c = desc->n_col;
+  void (*kernel)(const FsDesc, const float*, const unsigned char*, const float*, const float*,
+                 const int*, const int*, float*, short*, int, int) =
+      c <= 2 ? path_planned_kernel<2> : c <= 8 ? path_planned_kernel<8> : path_planned_kernel<MAX_COL>;
+  int rc = set_smem((const void*)kernel, smem);
+  if (rc) return rc;
+  kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(*desc, dv, flags, em, v0, obs, lengths,
+                                                              out, bp, batch, steps);
+  return (int)cudaGetLastError();
+}
+
+// Registers a thread and resident CTAs an SM for n states of svt_path's
+// generic arm at two dense columns (which = 0) or its planned arm (1).
+int svt_path_occupancy(int which, int n, int* regs, int* ctas_per_sm) {
+  const void* fns[] = {(const void*)path_kernel<2>, (const void*)path_planned_kernel<2>};
+  if (which < 0 || which > 1) return (int)cudaErrorInvalidValue;
+  return occupancy_of(fns[which], 2 * (size_t)n * sizeof(float), regs, ctas_per_sm);
 }
 
 int svt_backtrace(const short* src, const int* boundary, int* rev, int batch, int n, int steps,

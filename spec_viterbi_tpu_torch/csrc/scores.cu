@@ -1,16 +1,32 @@
 // Whole-sequence structured Viterbi scores kernels for Hopper (sm_90a).
 //
-// Two kernels, each with a plain C entry point loaded through ctypes by
+// The kernels, each with a plain C entry point loaded through ctypes by
 // spec_viterbi_tpu_torch/ops/fused.py (built by ops/_build.py):
 //
 //   svt_scores_masked  replaces spec_viterbi_tpu/ops/fused_pallas.py::
-//                      _make_unrolled_kernel (masked, any fused-eligible
-//                      operator: diagonals, dense rows, dense columns and
-//                      at most MAX_RES residual entries).
+//                      _make_unrolled_kernel without plans (masked, any
+//                      fused-eligible operator: diagonals, dense rows,
+//                      dense columns and at most MAX_RES residual entries):
+//                      the generic arm.
+//   svt_scores_masked_planned
+//                      replaces _make_unrolled_kernel with its col_plan and
+//                      row_plan (fused_pallas.py:289-343, launched with
+//                      them at :1310): the planned arm, for the operators
+//                      of the FS class, masked. It is scores_fs_kernel
+//                      with per-lane lengths.
 //   svt_scores_fs      replaces spec_viterbi_tpu/ops/fused_pallas.py::
 //                      _make_fs_kernel (unmasked; one diagonal, uniform
 //                      dense rows, one shared column reduce plus scalar
 //                      fixes).
+//
+// The planned arm exists because the generic step pays for what the plans
+// make scalar: a per-column block reduce of every dense column and a full
+// rv vector read per dense row (the S4 ablations put the columns at 1.85
+// and the patch at 1.65 of 6.77 us/step at 512 lanes). With the plans the
+// step is the FS kernel's: one shared column min folded into the bulk
+// pass from v_new, one scalar uniform-row candidate, and a flattened table
+// of scalar candidates for the special rows. The mask costs nothing here:
+// a lane that is done leaves its loop.
 //
 // A third entry point, svt_scores_variant (loaded by ops/probes.py),
 // launches the masked kernel with compile-time flags that strip or change
@@ -37,26 +53,6 @@
 #include <type_traits>
 
 #include "common.cuh"
-
-// Special-row flags of the FS descriptor.
-#define SP_USE_ACC 1  // start from the bulk candidate (else only the listed ones)
-#define SP_SHARED 2   // row feeds the next step's shared column min
-
-// Flags of the FS per-state byte table.
-#define ST_SHARED 1   // in the shared column support
-#define ST_BULK 2     // shared and not special: reduced inside the bulk pass
-
-struct FsDesc {
-  int n, d, n_uni, n_special;
-  int uni_src[MAX_UNI];
-  float uni_val[MAX_UNI];
-  int sp_row[MAX_SPECIAL];
-  int sp_flags[MAX_SPECIAL];
-  float sp_rmin_base[MAX_SPECIAL];  // +inf where the row has no column plan entry
-  int sp_begin[MAX_SPECIAL + 1];    // candidate range of each special row
-  int cand_src[MAX_CANDS];
-  float cand_val[MAX_CANDS];
-};
 
 // Compile-time flags of the masked kernel, 0 in production. Each other
 // value (one at a time; ops/probes.py mirrors the bits) changes or strips
@@ -250,16 +246,23 @@ static int launch_variant(int flags, const ScoresDesc* desc, const void* dv, con
 #undef SVT_VARIANT
 }
 
+// The planned scores kernel. MASKED = false is svt_scores_fs (every lane
+// takes every step); MASKED = true is the planned arm of
+// svt_scores_masked: lane b takes lane_steps(lengths, b, steps) steps and
+// leaves the loop, which is the whole mask, since one CTA owns one lane.
+template <bool MASKED>
 __global__ void __launch_bounds__(SVT_THREADS)
 scores_fs_kernel(const FsDesc desc, const float* __restrict__ dv,
                  const unsigned char* __restrict__ flags, const float* __restrict__ em,
                  const float* __restrict__ v0, const int* __restrict__ obs,
-                 float* __restrict__ out, int batch, int steps) {
+                 float* __restrict__ out, int batch, int steps,
+                 const int* __restrict__ lengths) {
   extern __shared__ float carry[];  // [2][n]
   __shared__ float red[SVT_WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const int n = desc.n, d = desc.d;
+  const int my_steps = MASKED ? lane_steps(lengths, b, steps) : steps;
 
   // the shared column min of the incoming carry seeds the first step
   float part = INFINITY;
@@ -277,7 +280,7 @@ scores_fs_kernel(const FsDesc desc, const float* __restrict__ dv,
 
   float* cur = carry;
   float* nxt = carry + n;
-  for (int t = 0; t < steps; ++t) {
+  for (int t = 0; t < my_steps; ++t) {
     const float* em_row = em + (size_t)obs[(size_t)t * batch + b] * n;
     // uniform dense rows: one scalar candidate shared by every row
     float ub = INFINITY;
@@ -324,6 +327,19 @@ scores_fs_kernel(const FsDesc desc, const float* __restrict__ dv,
   for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
 }
 
+template <bool MASKED>
+static int launch_fs(const FsDesc* desc, const float* dv, const unsigned char* flags,
+                     const float* em, const float* v0, const int* obs, const int* lengths,
+                     float* out, int batch, int steps, void* stream) {
+  const size_t smem = 2 * (size_t)desc->n * sizeof(float);
+  auto kernel = scores_fs_kernel<MASKED>;
+  int rc = set_smem((const void*)kernel, smem);
+  if (rc) return rc;
+  kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(*desc, dv, flags, em, v0, obs, out,
+                                                              batch, steps, lengths);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int svt_desc_size(int which) {
@@ -357,28 +373,27 @@ int svt_scores_variant(int flags, const ScoresDesc* desc, const void* dv, const 
 int svt_scores_fs(const FsDesc* desc, const float* dv, const unsigned char* flags,
                   const float* em, const float* v0, const int* obs, float* out, int batch,
                   int steps, void* stream) {
-  const size_t smem = 2 * (size_t)desc->n * sizeof(float);
-  int rc = set_smem((const void*)scores_fs_kernel, smem);
-  if (rc) return rc;
-  scores_fs_kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(
-      *desc, dv, flags, em, v0, obs, out, batch, steps);
-  return (int)cudaGetLastError();
+  return launch_fs<false>(desc, dv, flags, em, v0, obs, nullptr, out, batch, steps, stream);
 }
 
-// Registers a thread and resident CTAs an SM of svt_scores_fs (which = 0)
-// or svt_scores_masked at two dense columns (which = 1) for n states: what
-// decides how many lanes one wave of CTAs holds (the lane-count probe of
-// spec_viterbi_tpu_torch/probes/laneblock.py reads it).
+// The planned arm of svt_scores_masked: the FS kernel with per-lane
+// lengths (nullptr: every lane takes every step).
+int svt_scores_masked_planned(const FsDesc* desc, const float* dv, const unsigned char* flags,
+                              const float* em, const float* v0, const int* obs,
+                              const int* lengths, float* out, int batch, int steps,
+                              void* stream) {
+  return launch_fs<true>(desc, dv, flags, em, v0, obs, lengths, out, batch, steps, stream);
+}
+
+// Registers a thread and resident CTAs an SM for n states of
+// svt_scores_fs (which = 0), the generic arm of svt_scores_masked at two
+// dense columns (1) or its planned arm (2): what decides how many lanes
+// one wave of CTAs holds (spec_viterbi_tpu_torch/probes/laneblock.py).
 int svt_scores_occupancy(int which, int n, int* regs, int* ctas_per_sm) {
-  const void* fn = which == 0 ? (const void*)scores_fs_kernel : (const void*)scores_masked_kernel<2>;
-  const size_t smem = 2 * (size_t)n * sizeof(float);
-  int rc = set_smem(fn, smem);
-  if (rc) return rc;
-  cudaFuncAttributes attr;
-  rc = (int)cudaFuncGetAttributes(&attr, fn);
-  if (rc) return rc;
-  *regs = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, SVT_THREADS, smem);
+  const void* fns[] = {(const void*)scores_fs_kernel<false>, (const void*)scores_masked_kernel<2>,
+                       (const void*)scores_fs_kernel<true>};
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  return occupancy_of(fns[which], 2 * (size_t)n * sizeof(float), regs, ctas_per_sm);
 }
 
 }  // extern "C"

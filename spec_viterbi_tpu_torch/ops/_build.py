@@ -75,6 +75,9 @@ class FsDesc(ctypes.Structure):
         ("sp_begin", ctypes.c_int * (MAX_SPECIAL + 1)),
         ("cand_src", ctypes.c_int * MAX_CANDS),
         ("cand_val", ctypes.c_float * MAX_CANDS),
+        ("n_real", ctypes.c_int), ("n_col", ctypes.c_int),
+        ("col_base", ctypes.c_float * MAX_COL),
+        ("sp_col", ctypes.c_int * MAX_SPECIAL),
     ]
 
 
@@ -149,8 +152,14 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_masked.restype = i32
     lib.svt_scores_fs.argtypes = [vp] * 7 + [i32, i32, vp]
     lib.svt_scores_fs.restype = i32
+    lib.svt_scores_masked_planned.argtypes = [vp] * 8 + [i32, i32, vp]
+    lib.svt_scores_masked_planned.restype = i32
     lib.svt_path.argtypes = [vp] * 10 + [i32, i32, vp]
     lib.svt_path.restype = i32
+    lib.svt_path_planned.argtypes = [vp] * 9 + [i32, i32, vp]
+    lib.svt_path_planned.restype = i32
+    lib.svt_path_occupancy.argtypes = [i32, i32, vp, vp]
+    lib.svt_path_occupancy.restype = i32
     lib.svt_backtrace.argtypes = [vp] * 3 + [i32, i32, i32, vp]
     lib.svt_backtrace.restype = i32
     lib.svt_scores_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 + [i32] * 3 + [vp]

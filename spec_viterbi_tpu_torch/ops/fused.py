@@ -5,17 +5,26 @@ The port of ``spec_viterbi_tpu/ops/fused_pallas.py``. One kernel launch
 runs the whole T-step recurrence of a batch, with each lane's carry held
 on chip (``csrc/scores.cu``, ``csrc/path.cu``):
 
-- :func:`scores_masked` (kernel ``svt_scores_masked``) replaces the masked
-  Pallas kernel ``_make_unrolled_kernel``: any fused-eligible operator,
-  each lane stopping at its own length. It takes ragged and bucketed
-  batches, uniform batches outside the FS class, and the stream feeds.
+- :func:`scores_masked` replaces the masked Pallas kernel
+  ``_make_unrolled_kernel``: each lane stopping at its own length. It
+  takes ragged and bucketed batches, uniform batches outside the FS class,
+  and the stream feeds. Two arms, chosen by the tables it is given:
+  :class:`MaskedTables` launch the generic ``svt_scores_masked`` (any
+  fused-eligible operator), :class:`FsTables` the planned
+  ``svt_scores_masked_planned`` (the FS kernel with lengths), as the
+  Pallas kernel takes the uniform plans when it has them.
 - :func:`scores_fs` (kernel ``svt_scores_fs``) replaces the frame-shifted
   Pallas kernel ``_make_fs_kernel``: unmasked, for the single-diagonal
   operators whose dense rows and columns collapse into the uniform plans
   (``_fs_ok``), i.e. uniform-length batches of corpus-shaped models.
-- :func:`path` (kernel ``svt_path``) replaces ``_make_path_kernel``: the
-  masked or unmasked recurrence with ``(value, source)`` pairs under the
-  oracle's tie rule, writing int16 backpointers ``[T-1, B, n]``.
+- :func:`path` replaces ``_make_path_kernel``: the masked or unmasked
+  recurrence with ``(value, source)`` pairs under the oracle's tie rule,
+  writing int16 backpointers ``[T-1, B, n]``. Two arms as
+  :func:`scores_masked`'s: ``svt_path`` (generic) and ``svt_path_planned``,
+  whose dense columns take an exact two-pass argmin (:func:`_column_source`).
+
+:class:`FusedStructuredDecoder` picks each arm once, when it is built,
+from the plans.
 - :func:`backtrace` (kernel ``svt_backtrace``) replaces
   ``_backtrace_kernel``: the reverse walk from a boundary state.
 
@@ -45,10 +54,12 @@ import torch
 from spec_viterbi_tpu_torch.hmm import validate_obs_seq
 from spec_viterbi_tpu_torch.ops import _build
 from spec_viterbi_tpu_torch.ops.structured import (
+    NO_SOURCE,
     OperatorTensors,
     StructuredOperator,
     structured_path_batch,
     structured_scores_batch,
+    take_pair,
 )
 from spec_viterbi_tpu_torch.utils.batching import bucket_plan, quantize_t
 
@@ -69,7 +80,8 @@ INT16_STATES = np.iinfo(np.int16).max
 # kernel and nowhere else; the window kernels of parallel/fused_tp.py
 # count here too.
 launches = {
-    "scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 0,
+    "scores_masked": 0, "scores_masked_planned": 0, "scores_fs": 0,
+    "path": 0, "path_planned": 0, "backtrace": 0,
     "scores_window": 0, "path_window": 0,
 }
 
@@ -231,20 +243,24 @@ class MaskedTables:
 
 
 def scores_masked_plain(
-    t: MaskedTables,
+    t: "MaskedTables | FsTables",
     em_t: torch.Tensor,
     v0: torch.Tensor,
     obs: torch.Tensor,
     lengths: torch.Tensor | None,
 ) -> torch.Tensor:
-    """Plain version of ``svt_scores_masked``: the per-step structured
-    loop. ``em_t`` [n, E], ``v0`` [n, B], ``obs`` [T-1, B] int32,
-    ``lengths`` [B] int32 or None (unmasked) → [n, B]."""
+    """Plain version of the arm of :func:`scores_masked` that ``t``
+    selects: the per-step structured loop (``MaskedTables``), or the
+    uniform plans' arithmetic with lengths (``FsTables``,
+    :func:`scores_fs_plain`). ``em_t`` [n, E], ``v0`` [n, B], ``obs``
+    [T-1, B] int32, ``lengths`` [B] int32 or None (unmasked) → [n, B]."""
+    if isinstance(t, FsTables):
+        return scores_fs_plain(t, em_t, v0, obs, lengths)
     return structured_scores_batch(t.sop, t.arrs, em_t, v0, obs, lengths)
 
 
 def scores_masked(
-    t: MaskedTables,
+    t: "MaskedTables | FsTables",
     em: torch.Tensor,
     v0: torch.Tensor,
     obs: torch.Tensor,
@@ -252,24 +268,37 @@ def scores_masked(
 ) -> torch.Tensor:
     """Advance ``v0`` [n, B] through ``obs`` [T-1, B]; lane ``b`` takes
     ``lengths[b] - 1`` steps (all steps when ``lengths`` is None).
-    ``em`` is the [E, n] emission table. Returns [n, B] f32."""
+    ``em`` is the [E, n] emission table. Returns [n, B] f32.
+
+    ``MaskedTables`` launch the generic arm (``svt_scores_masked``),
+    ``FsTables`` the planned arm (``svt_scores_masked_planned``); the two
+    compute the same function bit for bit."""
     if v0.device.type == "cpu":
         return scores_masked_plain(t, em.T, v0, obs, lengths)
-    _check_cuda(t.sop.n, em, v0, obs, lengths)
+    planned = isinstance(t, FsTables)
+    _check_cuda(t.n if planned else t.sop.n, em, v0, obs, lengths)
     out = torch.empty_like(v0)
     b = v0.shape[1]
     if b == 0:
         return out
     lib = _build.library()
-    diag_vals, row_vals, col_vals, *_ = t.arrs
+    lens = None if lengths is None else lengths.data_ptr()
+    stream = torch.cuda.current_stream(v0.device).cuda_stream
     with torch.cuda.device(v0.device):
+        if planned:
+            rc = lib.svt_scores_masked_planned(
+                ctypes.byref(t.desc), t.dv.data_ptr(), t.flags.data_ptr(), em.data_ptr(),
+                v0.data_ptr(), obs.data_ptr(), lens, out.data_ptr(), b, obs.shape[0], stream,
+            )
+            _build.check(lib, rc, "svt_scores_masked_planned")
+            launches["scores_masked_planned"] += 1
+            return out
+        diag_vals, row_vals, col_vals, *_ = t.arrs
         rc = lib.svt_scores_masked(
             ctypes.byref(t.desc),
             diag_vals.data_ptr(), row_vals.data_ptr(), col_vals.data_ptr(),
-            em.data_ptr(), v0.data_ptr(), obs.data_ptr(),
-            None if lengths is None else lengths.data_ptr(),
-            out.data_ptr(), b, obs.shape[0],
-            torch.cuda.current_stream(v0.device).cuda_stream,
+            em.data_ptr(), v0.data_ptr(), obs.data_ptr(), lens,
+            out.data_ptr(), b, obs.shape[0], stream,
         )
         _build.check(lib, rc, "svt_scores_masked")
         launches["scores_masked"] += 1
@@ -289,9 +318,16 @@ class FsTables:
     ``rmin_base + r_min`` (``rmin_base`` is +inf where the row is no
     column's target). The host flattens the plans into this one table;
     min is exact, so the flattening changes no value.
+
+    The same tables drive the planned arms of :func:`scores_masked` and
+    :func:`path`. For the path, dense column ``c`` (its target is special
+    row ``col_slot[c]``, its base ``col_base[c]``) gives its shared part
+    as one ``(value, source)`` candidate (:func:`_column_source`), and the
+    uniform rows reach only the ``n_real`` real states.
     """
 
     n: int
+    n_real: int
     d: int
     dv: torch.Tensor  # [n] f32, the single diagonal
     flags: torch.Tensor  # [n] uint8: ST_SHARED | ST_BULK
@@ -304,6 +340,8 @@ class FsTables:
     cand_slot: torch.Tensor  # [K] int64, index into the special rows
     cand_src: torch.Tensor  # [K] int64
     cand_val: torch.Tensor  # [K] f32
+    col_slot: torch.Tensor  # [C] int64, the special row of each column's target
+    col_base: torch.Tensor  # [C] f32
     desc: _build.FsDesc
 
     @classmethod
@@ -365,6 +403,14 @@ class FsTables:
         desc.sp_begin[: len(begin)] = begin
         desc.cand_src[:n_cands] = cand_src
         desc.cand_val[:n_cands] = cand_val
+        col_slot = [special.index(target) for target, _, _ in col_plan]
+        col_base = [base for _, base, _ in col_plan]
+        desc.n_real = sop.states_num
+        desc.n_col = len(col_plan)
+        desc.col_base[: len(col_plan)] = col_base
+        desc.sp_col[: len(special)] = [
+            col_slot.index(s) if s in col_slot else -1 for s in range(len(special))
+        ]
 
         def f32(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -373,7 +419,7 @@ class FsTables:
             return torch.as_tensor(np.asarray(x, np.int64), device=device)
 
         return cls(
-            n=n, d=d,
+            n=n, n_real=sop.states_num, d=d,
             dv=f32(sop.diag_vals[0]),
             flags=torch.as_tensor(flags, device=device),
             uni_src=i64([s for s, _ in uni]), uni_val=f32([c for _, c in uni]),
@@ -382,6 +428,7 @@ class FsTables:
             sp_shared=torch.as_tensor(sp_shared, dtype=torch.bool, device=device),
             sp_rmin_base=f32(sp_rmin),
             cand_slot=i64(cand_slot), cand_src=i64(cand_src), cand_val=f32(cand_val),
+            col_slot=i64(col_slot), col_base=f32(col_base),
             desc=desc,
         )
 
@@ -393,10 +440,16 @@ def _masked_min(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def scores_fs_plain(
-    t: FsTables, em_t: torch.Tensor, v0: torch.Tensor, obs: torch.Tensor
+    t: FsTables,
+    em_t: torch.Tensor,
+    v0: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain version of ``svt_scores_fs``: the same uniform-plan candidate
-    arithmetic, step by step, in torch. ``em_t`` [n, E] → [n, B]."""
+    """Plain version of ``svt_scores_fs`` (and, with ``lengths``, of
+    ``svt_scores_masked_planned``): the same uniform-plan candidate
+    arithmetic, step by step, in torch; lane ``b`` freezes once step
+    ``k + 1`` reaches ``lengths[b]``. ``em_t`` [n, E] → [n, B]."""
     shared = (t.flags & _build.ST_SHARED).bool()
     bulk = (t.flags & _build.ST_BULK).bool()
     inf = float("inf")
@@ -416,7 +469,10 @@ def scores_fs_plain(
         p = torch.minimum(p, t.sp_rmin_base[:, None] + r_min[None, :])
         val = em_sel[t.sp_row] + p
         v_new[t.sp_row] = val
+        # a frozen lane's r_min is never read again
         r_min = torch.minimum(_masked_min(bulk, v_new), _masked_min(t.sp_shared, val))
+        if lengths is not None:
+            v_new = torch.where(((k + 1) < lengths)[None, :], v_new, v)
         v = v_new
     return v
 
@@ -450,20 +506,104 @@ def scores_fs(
 # ---- the path kernels: svt_path and svt_backtrace -------------------------
 
 
-def path_plain(
-    t: MaskedTables,
+def _column_source(v: torch.Tensor, shared: torch.Tensor, base: torch.Tensor,
+                   m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shared part of one planned dense column, as one ``(value,
+    source)`` candidate per lane: ``M = fl(base + m)`` with ``m`` the min
+    of the carry ``v`` [n, B] over the ``shared`` rows [n] (monotone
+    rounding makes it the min of the sums), and the LOWEST shared row
+    ``i`` with ``fl(base + v[i]) == M`` (``NO_SOURCE`` where none).
+
+    The second pass is what makes the argmin exact: two carries that
+    differ can give one sum (4095.999267578125 and 4095.9990234375 both
+    give 4096.9990234375 with base 1.0), and the oracle then takes the
+    lower row, where the argmin of ``v`` would take the smaller carry."""
+    mc = base + m
+    rows = torch.arange(v.shape[0], device=v.device)[:, None]
+    hit = shared[:, None] & (base + v == mc[None, :])
+    return mc, torch.where(hit, rows, NO_SOURCE).amin(dim=0)
+
+
+def path_planned_plain(
+    t: FsTables,
     em_t: torch.Tensor,
     v0: torch.Tensor,
     obs: torch.Tensor,
     lengths: torch.Tensor | None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``svt_path``: the masked argmin scan.
-    ``em_t`` [n, E] → (carry [n, B] f32, src [T-1, B, n] int16)."""
+    """Plain version of ``svt_path_planned``: the uniform plans'
+    arithmetic with ``(value, source)`` pairs, step by step, the two-pass
+    column argmin included (the shared min ``m`` of each step is taken from
+    the previous step's carry). ``em_t`` [n, E] → (carry [n, B] f32,
+    src [T-1, B, n] int16), equal to :func:`path_plain` of the operator's
+    ``MaskedTables``."""
+    n, b = v0.shape
+    dev = v0.device
+    inf = float("inf")
+    shared = (t.flags & _build.ST_SHARED).bool()
+    rows = torch.arange(n, device=dev)[:, None]
+    real = rows < t.n_real
+    n_sp = t.sp_row.shape[0]
+    slot = torch.cat([t.cand_slot, t.col_slot])[:, None].expand(-1, b)
+    src_all = torch.empty((obs.shape[0], b, n), dtype=torch.int16, device=dev)
+    v = v0
+    m = _masked_min(shared, v)  # [B]
+    for k in range(obs.shape[0]):
+        em_sel = em_t[:, obs[k].long()]  # [n, B]
+        ub = torch.full((b,), inf, device=dev)
+        us = torch.full((b,), NO_SOURCE, dtype=torch.int64, device=dev)
+        for val, s in zip(t.uni_val[:, None] + v[t.uni_src], t.uni_src.tolist()):
+            ub, us = take_pair(ub, us, val, s)
+        # bulk: the diagonal (wrap rows meet +inf in dv), then the uniform
+        # pair on the real rows
+        u, s = take_pair(torch.full_like(v, inf), torch.full((n, b), NO_SOURCE, device=dev),
+                         t.dv[:, None] + torch.roll(v, t.d, dims=0), rows - t.d)
+        u, s = take_pair(u, s, torch.where(real, ub[None, :], inf), us[None, :].expand(n, b))
+        # special rows: the bulk pair where used, then the lexicographic min
+        # over their scalar candidates and their column's shared part
+        su = torch.where(t.sp_use_acc[:, None], u[t.sp_row], inf)
+        ss = torch.where(t.sp_use_acc[:, None], s[t.sp_row], NO_SOURCE)
+        cols = [_column_source(v, shared, base, m) for base in t.col_base]
+        cand = torch.cat([t.cand_val[:, None] + v[t.cand_src], *(mc[None] for mc, _ in cols)])
+        cand_src = torch.cat([t.cand_src[:, None].expand(-1, b), *(ic[None] for _, ic in cols)])
+        if cand.shape[0]:
+            vmin = torch.full((n_sp, b), inf, device=dev).scatter_reduce(0, slot, cand, reduce="amin")
+            tie = (cand == vmin.gather(0, slot)) & torch.isfinite(cand)
+            smin = torch.full((n_sp, b), NO_SOURCE, device=dev).scatter_reduce(
+                0, slot, torch.where(tie, cand_src, NO_SOURCE), reduce="amin")
+            su, ss = take_pair(su, ss, vmin, smin)
+        u[t.sp_row] = su
+        s[t.sp_row] = ss
+        v_new = em_sel + u
+        src = torch.where(torch.isinf(u), 0, s)
+        if lengths is not None:
+            keep = ((k + 1) < lengths)[None, :]
+            v_new = torch.where(keep, v_new, v)
+            src = torch.where(keep, src, rows)
+        src_all[k] = src.T
+        m = _masked_min(shared, v_new)
+        v = v_new
+    return v, src_all
+
+
+def path_plain(
+    t: "MaskedTables | FsTables",
+    em_t: torch.Tensor,
+    v0: torch.Tensor,
+    obs: torch.Tensor,
+    lengths: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the arm of :func:`path` that ``t`` selects: the
+    masked argmin scan (``MaskedTables``) or :func:`path_planned_plain`
+    (``FsTables``). ``em_t`` [n, E] → (carry [n, B] f32, src [T-1, B, n]
+    int16)."""
+    if isinstance(t, FsTables):
+        return path_planned_plain(t, em_t, v0, obs, lengths)
     return structured_path_batch(t.sop, t.arrs, em_t, v0, obs, lengths, torch.int16)
 
 
 def path(
-    t: MaskedTables,
+    t: "MaskedTables | FsTables",
     em: torch.Tensor,
     v0: torch.Tensor,
     obs: torch.Tensor,
@@ -472,27 +612,44 @@ def path(
     """Advance ``v0`` [n, B] through ``obs`` [T-1, B] as :func:`scores_masked`
     does, and keep the winning source of every step: returns
     ``(carry [n, B] f32, src [T-1, B, n] int16)``. A lane past its length
-    writes identity pointers. ``em`` is the [E, n] emission table."""
-    if t.sop.n > INT16_STATES:
-        raise ValueError(f"{t.sop.n} states do not fit int16 backpointers")
+    writes identity pointers. ``em`` is the [E, n] emission table.
+
+    ``MaskedTables`` launch the generic arm (``svt_path``), ``FsTables``
+    the planned arm (``svt_path_planned``, an even state count); the two
+    compute the same function bit for bit."""
+    planned = isinstance(t, FsTables)
+    n = t.n if planned else t.sop.n
+    if n > INT16_STATES:
+        raise ValueError(f"{n} states do not fit int16 backpointers")
     if v0.device.type == "cpu":
         return path_plain(t, em.T, v0, obs, lengths)
-    _check_cuda(t.sop.n, em, v0, obs, lengths)
+    _check_cuda(n, em, v0, obs, lengths)
+    if planned and n % 2:
+        raise ValueError(f"the planned path kernel takes an even state count, not {n}")
     steps, b = obs.shape
     out = torch.empty_like(v0)
-    bp = torch.empty((steps, b, t.sop.n), dtype=torch.int16, device=v0.device)
+    bp = torch.empty((steps, b, n), dtype=torch.int16, device=v0.device)
     if b == 0:
         return out, bp
     lib = _build.library()
-    diag_vals, row_vals, col_vals, *_ = t.arrs
+    lens = None if lengths is None else lengths.data_ptr()
+    stream = torch.cuda.current_stream(v0.device).cuda_stream
     with torch.cuda.device(v0.device):
+        if planned:
+            rc = lib.svt_path_planned(
+                ctypes.byref(t.desc), t.dv.data_ptr(), t.flags.data_ptr(), em.data_ptr(),
+                v0.data_ptr(), obs.data_ptr(), lens, out.data_ptr(), bp.data_ptr(), b, steps,
+                stream,
+            )
+            _build.check(lib, rc, "svt_path_planned")
+            launches["path_planned"] += 1
+            return out, bp
+        diag_vals, row_vals, col_vals, *_ = t.arrs
         rc = lib.svt_path(
             ctypes.byref(t.desc),
             diag_vals.data_ptr(), row_vals.data_ptr(), col_vals.data_ptr(),
-            em.data_ptr(), v0.data_ptr(), obs.data_ptr(),
-            None if lengths is None else lengths.data_ptr(),
-            out.data_ptr(), bp.data_ptr(), b, steps,
-            torch.cuda.current_stream(v0.device).cuda_stream,
+            em.data_ptr(), v0.data_ptr(), obs.data_ptr(), lens,
+            out.data_ptr(), bp.data_ptr(), b, steps, stream,
         )
         _build.check(lib, rc, "svt_path")
         launches["path"] += 1
@@ -941,6 +1098,11 @@ class FusedStructuredDecoder(_StreamAPI):
             if self._fs_ok
             else None
         )
+        # the arms of the masked scores and path kernels, chosen here once
+        # from the plans: the planned arms take the FS class (the planned
+        # path kernel an even state count), the generic arms the rest
+        self._scores_arm = self._masked if self._fs is None else self._fs
+        self._path_arm = self._masked if self._fs is None or n % 2 else self._fs
         self._model_key = model_key("torch-fused", sop, emissions, pi)
 
     def _scores_core(self, seqs_t, lengths, masked: bool) -> torch.Tensor:
@@ -950,7 +1112,7 @@ class FusedStructuredDecoder(_StreamAPI):
         if not masked and self._fs_ok:
             # uniform-length batches of the single-diagonal class
             return scores_fs(self._fs, self.em, v0, obs)
-        return scores_masked(self._masked, self.em, v0, obs, lengths if masked else None)
+        return scores_masked(self._scores_arm, self.em, v0, obs, lengths if masked else None)
 
     def _run(self, seqs_t, lengths, masked: bool = True, b_real: int | None = None):
         """Returns [B, n] scores; ``b_real`` slices to [b_real, states_num]."""
@@ -1009,7 +1171,7 @@ class FusedStructuredDecoder(_StreamAPI):
         """State-major fused path decode: [T, B] symbols → (scores [n, B],
         path [T, B] int32)."""
         v0 = self.em_t[:, seqs_t[0].long()] + self.pi[:, None]
-        out, src = path(self._masked, self.em, v0, seqs_t[1:], lengths if masked else None)
+        out, src = path(self._path_arm, self.em, v0, seqs_t[1:], lengths if masked else None)
         # first index on ties, 0 for an all-inf column: the oracle's argmin
         last = torch.argmin(out, dim=0).to(torch.int32)
         rev = backtrace(src, last)  # [T-1, B]
@@ -1110,14 +1272,15 @@ class FusedStructuredDecoder(_StreamAPI):
             raise ValueError("path streaming needs int16-addressable states")
 
     def _feed(self, carry, syms, lengths):
-        # One masked B1 launch; the kernel stops each lane at lengths[b] - 1.
-        # Path streams use the same feed: B1 is exact f32 like B3, so the
-        # checkpoints equal the carries B3 re-runs from, and the JAX
-        # package's separate exact-emission feed for paths is not needed.
-        return scores_masked(self._masked, self.em, carry, syms, lengths)
+        # One masked B1 launch (its arm chosen at __init__); the kernel stops
+        # each lane at lengths[b] - 1. Path streams use the same feed: B1 is
+        # exact f32 like B3, so the checkpoints equal the carries B3 re-runs
+        # from, and the JAX package's separate exact-emission feed for paths
+        # is not needed.
+        return scores_masked(self._scores_arm, self.em, carry, syms, lengths)
 
     def _path_pointers(self, carry, syms, lengths):
-        return path(self._masked, self.em, carry, syms, lengths)[1]
+        return path(self._path_arm, self.em, carry, syms, lengths)[1]
 
     def _backtrace(self, src, boundary):
         return backtrace(src, boundary)

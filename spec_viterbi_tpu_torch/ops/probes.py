@@ -460,18 +460,30 @@ def scores_variant(
     return out
 
 
+# the kernels scores_occupancy reports: (entry point, which)
+OCCUPANCY_KERNELS = {
+    "fs": ("svt_scores_occupancy", 0),
+    "masked": ("svt_scores_occupancy", 1),
+    "masked_planned": ("svt_scores_occupancy", 2),
+    "path": ("svt_path_occupancy", 0),
+    "path_planned": ("svt_path_occupancy", 1),
+}
+
+
 def scores_occupancy(kernel: str, n: int, device: torch.device) -> tuple[int, int]:
-    """(registers a thread, resident CTAs an SM) of ``svt_scores_fs``
-    (``"fs"``) or ``svt_scores_masked`` at two dense columns (``"masked"``)
-    for ``n`` states, as the card reports them."""
-    which = {"fs": 0, "masked": 1}[kernel]
+    """(registers a thread, resident CTAs an SM) for ``n`` states, as the
+    card reports them, of ``svt_scores_fs`` (``"fs"``), the generic and
+    planned arms of ``svt_scores_masked`` (``"masked"`` at two dense
+    columns, ``"masked_planned"``) or of ``svt_path`` (``"path"``,
+    ``"path_planned"``)."""
+    entry, which = OCCUPANCY_KERNELS[kernel]
     if torch.device(device).type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     lib = _build.library()
     regs, ctas = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        rc = lib.svt_scores_occupancy(which, n, ctypes.byref(regs), ctypes.byref(ctas))
-    _build.check(lib, rc, "svt_scores_occupancy")
+        rc = getattr(lib, entry)(which, n, ctypes.byref(regs), ctypes.byref(ctas))
+    _build.check(lib, rc, entry)
     return regs.value, ctas.value
 
 

@@ -194,7 +194,15 @@ def structured_mv_batch(
 
 
 # source index of a row that no finite candidate reached yet
-_NO_SOURCE = np.iinfo(np.int32).max
+NO_SOURCE = np.iinfo(np.int32).max
+
+
+def take_pair(u, src, cand, cand_src):
+    """Adopt ``(cand, cand_src)`` where it precedes ``(u, src)`` under the
+    tie rule: a lower value, or an equal finite value from a lower
+    source."""
+    better = (cand < u) | ((cand == u) & (cand_src < src) & torch.isfinite(cand))
+    return torch.where(better, cand, u), torch.where(better, cand_src, src)
 
 
 def structured_mv_argmin(
@@ -215,12 +223,8 @@ def structured_mv_argmin(
     n, b = v.shape
     rows = torch.arange(n, device=v.device)[:, None]
     u = torch.full_like(v, float("inf"))
-    src = torch.full((n, b), _NO_SOURCE, dtype=torch.int64, device=v.device)
-
-    def take(u, src, cand, cand_src):
-        better = (cand < u) | ((cand == u) & (cand_src < src) & torch.isfinite(cand))
-        return torch.where(better, cand, u), torch.where(better, cand_src, src)
-
+    src = torch.full((n, b), NO_SOURCE, dtype=torch.int64, device=v.device)
+    take = take_pair
     for k, d in enumerate(op.diag_offsets):
         # wrap rows hold +inf in diag_vals, so they never adopt a source
         cand = diag_vals[k][:, None] + torch.roll(v, d, dims=0)
@@ -240,7 +244,7 @@ def structured_mv_argmin(
         s_, d_ = int(op.res_src[z]), int(op.res_dst[z])
         cand = res_vals[z] + v[s_]
         u[d_], src[d_] = take(u[d_], src[d_], cand, torch.full_like(src[d_], s_))
-    src = torch.where(src == _NO_SOURCE, 0, src)
+    src = torch.where(src == NO_SOURCE, 0, src)
     return u, src
 
 

@@ -14,10 +14,11 @@ chooses to do for it: the one-hot products of ``svt_probe_emsel``'s
 tensor-core schemes compute a select that one read gives, so they are
 left out of its bound (:func:`emsel_mma_ms` gives their time apart).
 
-Counts follow the recurrence per (state, step, lane): one op per
-candidate add and one per min, one for the emission add; where lanes stop
-early the steps they take are counted, not the most they could take. The
-few special rows patched by one warp are left out (40 of 2,432 rows at
+Counts follow the recurrence per (state, step, lane), one count per
+operator whatever kernel runs it (:func:`operator_step`: the uniform
+plans' count where the operator has them); where lanes stop early the
+steps they take are counted, not the most they could take. The few
+special rows patched by one warp are left out (40 of 2,432 rows at
 most). What no bound shows is the chain: each step waits for the last
 through a barrier; ``chip_smoke.py`` measures that as the chain floor
 (the ``empty`` probe's time a step).
@@ -49,32 +50,52 @@ def _carry_bytes(n: int, lanes: int) -> int:
     return 2 * n * lanes * F32  # v0 in, scores out
 
 
-def masked_scores(n: int, n_diag: int, n_row: int, n_col: int, lanes: int, steps: int,
-                  lane_steps: int, em_rows: int, lengths: bool) -> Work:
-    """``svt_scores_masked`` (and ``svt_scores_variant`` with no flag):
-    per state and lane step, an add and a min per diagonal, dense row and
-    dense column, and the emission add. ``lane_steps`` is the steps the
-    lanes take in all."""
-    per = 2 * (n_diag + n_row + n_col) + 1
-    nbytes = (_carry_bytes(n, lanes) + steps * lanes * I32 + (lanes * I32 if lengths else 0)
-              + (em_rows + n_diag + n_row + n_col) * n * F32)
-    return Work(per * n * lane_steps, nbytes)
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """One operator's step as every bound of a scores or path kernel counts
+    it, whichever kernel or arm runs it: the padded state count, the f32
+    operations one state takes a step, and the bytes of the operator's
+    tables (each read once)."""
+
+    n: int
+    ops_per_state: int
+    table_bytes: int
 
 
-def fs_scores(n: int, lanes: int, steps: int, em_rows: int) -> Work:
-    """``svt_scores_fs``: per state and step the diagonal add, the min
-    with the uniform-row candidate, the emission add and the shared
-    column's min."""
-    nbytes = _carry_bytes(n, lanes) + steps * lanes * I32 + em_rows * n * F32 + n * (F32 + 1)
-    return Work(4 * n * lanes * steps, nbytes)
+def operator_step(n: int, n_diag: int, n_row: int, n_col: int, planned: bool) -> Step:
+    """The one count of an operator. With both uniform plans (``planned``:
+    the FS class, ``FusedStructuredDecoder._fs`` exists) a state takes the
+    diagonal add, the min with the uniform rows' scalar candidate, the
+    emission add and the shared column's min: 4, with the diagonal and a
+    byte of flags a state as its tables. Without them, an add and a min per
+    diagonal, dense row and dense column, and the emission add, with their
+    value vectors as its tables. The few special rows are left out."""
+    if planned:
+        return Step(n, 4, n * (F32 + 1))
+    return Step(n, 2 * (n_diag + n_row + n_col) + 1, (n_diag + n_row + n_col) * n * F32)
 
 
-def path(n: int, n_diag: int, n_row: int, n_col: int, lanes: int, steps: int, lane_steps: int,
-         em_rows: int, lengths: bool) -> Work:
-    """``svt_path``: the masked step's arithmetic plus one int16 pointer
-    per state, lane and step (frozen steps write identity pointers)."""
-    base = masked_scores(n, n_diag, n_row, n_col, lanes, steps, lane_steps, em_rows, lengths)
-    return Work(base.ops, base.bytes + steps * lanes * n * I16)
+def masked_scores(step: Step, lanes: int, steps: int, lane_steps: int, em_rows: int,
+                  lengths: bool) -> Work:
+    """``svt_scores_masked`` (either arm; and ``svt_scores_variant`` with no
+    flag): ``step``'s work per state and lane step, where ``lane_steps`` is
+    the steps the lanes take in all."""
+    nbytes = (_carry_bytes(step.n, lanes) + steps * lanes * I32 + (lanes * I32 if lengths else 0)
+              + em_rows * step.n * F32 + step.table_bytes)
+    return Work(step.ops_per_state * step.n * lane_steps, nbytes)
+
+
+def fs_scores(step: Step, lanes: int, steps: int, em_rows: int) -> Work:
+    """``svt_scores_fs``: the unmasked scores work, every lane every step."""
+    return masked_scores(step, lanes, steps, lanes * steps, em_rows, False)
+
+
+def path(step: Step, lanes: int, steps: int, lane_steps: int, em_rows: int,
+         lengths: bool) -> Work:
+    """``svt_path`` (either arm): the scores work plus one int16 pointer per
+    state, lane and step (frozen steps write identity pointers)."""
+    base = masked_scores(step, lanes, steps, lane_steps, em_rows, lengths)
+    return Work(base.ops, base.bytes + steps * lanes * step.n * I16)
 
 
 def backtrace(lanes: int, steps: int) -> Work:

@@ -9,14 +9,14 @@ and whether more lanes per CTA or more CTAs help. So this times:
 
 - the ``empty`` probe with the step's symbol added (``empty_run``'s
   body) at 1, 2 and 4 lanes per CTA, [2,432, 512] carries, 3,496 steps;
-- ``svt_scores_fs`` and ``svt_scores_masked`` (unmasked) on the
-  corpus-shaped stand-in at 128, 256, 512 and 1,024 lanes, one CTA a
+- ``svt_scores_fs`` and both arms of ``svt_scores_masked`` (unmasked) on
+  the corpus-shaped stand-in at 128, 256, 512 and 1,024 lanes, one CTA a
   lane (the batches repeat or cut the 512 sequences, so the lanes they
   share must give the same scores bit for bit): flat times while the
   chain's latency bounds a step, times that grow with the lanes once the
-  SMs' throughput does; with each kernel's registers a thread and the
-  CTAs an SM holds, as the card reports them, so the lanes one wave
-  holds.
+  SMs' throughput does; with the registers a thread and the CTAs an SM of
+  these kernels and of both arms of ``svt_path``, as the card reports
+  them, so the lanes one wave holds.
 
 It also gives the chain floor (:func:`empty_floor`): the empty step's
 time at any carry length and CTA count, which the bounds of the
@@ -74,7 +74,7 @@ def run(rec: Record, device, seed: int = 0, corpus: CorpusBatch | None = None) -
     corpus = corpus or CorpusBatch.make(STATES_MATCH, LANES, T_LEN, seed, device)
     fd = corpus.fd
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for name in ("fs", "masked"):
+    for name in probes.OCCUPANCY_KERNELS:
         regs, ctas = probes.scores_occupancy(name, fd.n, device)
         out[f"occupancy_{name}"] = rec.emit(f"occupancy_{name}", registers=regs, ctas_per_sm=ctas,
                                             sms=sms, lanes_per_wave=ctas * sms, n=fd.n)
@@ -90,6 +90,7 @@ def run(rec: Record, device, seed: int = 0, corpus: CorpusBatch | None = None) -
         for name, fn in (
             ("fs", lambda: fused.scores_fs(fd._fs, fd.em, c.v0, c.obs)),
             ("masked", lambda: fused.scores_masked(fd._masked, fd.em, c.v0, c.obs, None)),
+            ("masked_planned", lambda: fused.scores_masked(fd._fs, fd.em, c.v0, c.obs, None)),
         ):
             ms = median_ms(fn)
             out[f"{name}_b{lanes}"] = rec.emit(

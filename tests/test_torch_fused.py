@@ -130,6 +130,41 @@ def test_fs_plain_equals_masked_plain():
     assert torch.equal(fs, base)
 
 
+def _planned_batches():
+    rng = np.random.default_rng(41)
+    return {
+        "uniform": [29] * 6,
+        "ragged": [1, 2, 17, 40, 9, 33],
+        "bucketed": list(rng.integers(2, 12, 200)) + list(rng.integers(100, 127, 60)),
+    }
+
+
+PLANNED_BATCHES = _planned_batches()
+
+
+@pytest.mark.parametrize("batch", sorted(PLANNED_BATCHES))
+def test_planned_masked_arm_bit_equal(batch):
+    """The planned arm of scores_masked (on the CPU: scores_fs_plain with
+    lengths) is bit-equal to the generic arm, the oracle and the JAX XLA
+    structured path on a plan-eligible model, masked and unmasked; the
+    decoder's masked decodes go through it."""
+    model = _profile(seed=41, match_states=160)
+    _, port = _pair(model)
+    assert port._fs_ok and port._scores_arm is port._fs
+    rng = np.random.default_rng(len(batch))
+    seqs = _seqs(rng, PLANNED_BATCHES[batch])
+    st, ln, _ = port.prepare(seqs)
+    v0 = port.em_t[:, st[0].long()] + port.pi[:, None]
+    for lens in (ln, None):
+        planned = fused.scores_masked(port._fs, port.em, v0, st[1:], lens)
+        assert torch.equal(planned, fused.scores_masked(port._masked, port.em, v0, st[1:], lens))
+    masked = port._run(st, ln, masked=True, b_real=len(seqs)).numpy()
+    _assert_exact(model, seqs, list(masked))
+    if batch == "bucketed":
+        assert fused.bucket_plan([len(s) for s in seqs], lane_block=fused.BB) is not None
+    _assert_exact(model, seqs, port.decode_batch(seqs))
+
+
 def test_uniform_length_one_and_t_pad_are_masked():
     _, port = _pair(_profile(seed=5))
     one = [np.array([2], np.int32), np.array([5], np.int32)]

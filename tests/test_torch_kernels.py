@@ -27,6 +27,7 @@ from spec_viterbi_tpu_torch.parallel import fused_tp
 torch.set_num_threads(1)
 
 NO_WINDOW = {"scores_window": 0, "path_window": 0}
+NO_PLANNED = {"scores_masked_planned": 0, "path_planned": 0}
 
 
 def _structured_model(rng, states, emit, offsets, residual):
@@ -101,6 +102,47 @@ def _negative_zero_carry(n):
     return v
 
 
+COLLISION_ROWS = (3, 7)
+
+
+def _collision_model(states=40):
+    """A model in the uniform plans' class whose dense column (into the
+    last state, cost 1.0 from every state but 0) sees a rounding collision
+    after the first symbol: the start costs put 4096 - 3 * 2^-12 on state 3
+    and 4096 - 4 * 2^-12 on state 7, both shared rows of the column, and
+    5000 elsewhere; with the column base 1.0 both sums round to
+    4096.9990234375. The oracle's argmin takes state 3; the argmin of the
+    carry is state 7. Costs are given as they are (no probabilities): the
+    dense row out of state 0 costs 2.0, the +1 diagonal 8.0, every
+    emission 0.0."""
+    last = states - 1
+    cost = {(0, j): 2.0 for j in range(states)}
+    cost.update({(i, last): 1.0 for i in range(1, states)})
+    cost.update({(i, i + 1): 8.0 for i in range(1, states - 2)})
+    keys = sorted(cost)
+    pi = np.full(states, 5000.0, np.float32)
+    pi[COLLISION_ROWS[0]] = 4096 - 3 * 2.0**-12
+    pi[COLLISION_ROWS[1]] = 4096 - 4 * 2.0**-12
+    return HMM(
+        states_num=states,
+        emit_num=2,
+        trans_rows=np.array([k[0] for k in keys], np.int64),
+        trans_cols=np.array([k[1] for k in keys], np.int64),
+        trans_probs=np.array([cost[k] for k in keys], np.float32),
+        emissions=np.zeros((2, states), np.float32),
+        start_probabilities_cols=np.arange(states, dtype=np.int64),
+        start_probabilities=pi,
+    )
+
+
+def _argmin_of_carry(v, shared, base, m):
+    """The shortcut the two-pass argmin replaces: the lowest shared row
+    holding the min of the carry, not the lowest whose sum reaches it."""
+    rows = torch.arange(v.shape[0], device=v.device)[:, None]
+    hit = shared[:, None] & (v == m[None, :])
+    return base + m, torch.where(hit, rows, fused.NO_SOURCE).amin(dim=0)
+
+
 def _decoder(hmm, device):
     sop = StructuredOperator.from_hmm(hmm)
     return fused.FusedStructuredDecoder(
@@ -159,6 +201,50 @@ def test_negative_zero_ties_resolve_by_index():
     np.testing.assert_array_equal(pa, want_pa)
 
 
+def test_negative_zero_model_takes_the_planned_arms():
+    """The -0.0 model is in the plans' class; both plain arms give the
+    generic step's pointers on the -0.0/+0.0 column tie."""
+    hmm = _negative_zero_model()
+    fd = _decoder(hmm, "cpu")
+    assert fd._fs_ok and fd._path_arm is fd._fs and fd._scores_arm is fd._fs
+    v = torch.as_tensor(_negative_zero_carry(fd.n))
+    obs = torch.zeros((1, 2), dtype=torch.int32)
+    out, src = fused.path_plain(fd._fs, fd.em_t, v, obs, None)
+    g_out, g_src = fused.path_plain(fd._masked, fd.em_t, v, obs, None)
+    assert torch.equal(out, g_out) and torch.equal(src, g_src)
+    assert src[0, :, hmm.states_num - 1].tolist() == [3, 1]
+
+
+def test_rounding_collision_points_to_lower_row(monkeypatch):
+    """Two carries that differ but give one column sum: the planned path
+    points to the lower row (the oracle's), and an argmin of the carry
+    would point to the higher one."""
+    hmm = _collision_model()
+    fd = _decoder(hmm, "cpu")
+    last = hmm.states_num - 1
+    assert fd._fs_ok and fd._path_arm is fd._fs
+    assert fd._col_plan == [(last, 1.0, [])]  # base 1.0, no scalar fix
+    shared = (fd._fs.flags & fused._build.ST_SHARED).bool()
+    assert shared[list(COLLISION_ROWS)].all()
+    seq = np.array([0, 0], np.int32)
+    want_sc, want_pa = viterbi_path_oracle(hmm, seq)
+    assert want_pa.tolist() == [COLLISION_ROWS[0], last]
+    v0 = fd.pi[:, None].clone()
+    obs = torch.zeros((1, 1), dtype=torch.int32)
+    outs = [fused.path_plain(t, fd.em_t, v0, obs, None) for t in (fd._fs, fd._masked)]
+    for out, src in outs:
+        assert src[0, 0, last] == COLLISION_ROWS[0]
+        np.testing.assert_array_equal(out[: hmm.states_num, 0].numpy(), want_sc)
+    assert torch.equal(outs[0][1], outs[1][1])
+    sc, pa = fd.decode_path_batch([seq])[0]
+    np.testing.assert_array_equal(pa, want_pa)
+    np.testing.assert_array_equal(sc, want_sc)
+    monkeypatch.setattr(fused, "_column_source", _argmin_of_carry)
+    _, src = fused.path_plain(fd._fs, fd.em_t, v0, obs, None)
+    assert src[0, 0, last] == COLLISION_ROWS[1]
+    assert fd.decode_path_batch([seq])[0][1].tolist() != want_pa.tolist()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -202,9 +288,12 @@ def test_decoder_goes_through_kernels(cuda_device):
     ragged = _seqs(rng, [3, 30, 17], 20)
     fused.reset_launches()
     out = dec.run_batch(dec.prepare_batch(uniform))
-    assert fused.launches == {"scores_masked": 0, "scores_fs": 1, "path": 0, "backtrace": 0, **NO_WINDOW}
+    assert fused.launches == {"scores_masked": 0, "scores_fs": 1, "path": 0, "backtrace": 0,
+                              **NO_PLANNED, **NO_WINDOW}
     got = dec.decode_batch(ragged)
-    assert fused.launches == {"scores_masked": 1, "scores_fs": 1, "path": 0, "backtrace": 0, **NO_WINDOW}
+    # the ragged batch takes the planned arm of the masked kernel
+    assert fused.launches == {"scores_masked": 0, "scores_fs": 1, "path": 0, "backtrace": 0,
+                              **NO_PLANNED, "scores_masked_planned": 1, **NO_WINDOW}
     out = out.cpu().numpy()
     for i, s in enumerate(uniform):
         np.testing.assert_array_equal(out[i, : hmm.states_num], viterbi_scores_oracle(hmm, s))
@@ -260,13 +349,17 @@ def test_path_kernels_equal_plain_on_card(cuda_device, hmm, lanes):
 
 
 @pytest.mark.cuda
-def test_negative_zero_ties_on_card(cuda_device):
+@pytest.mark.parametrize("arm", ["_masked", "_fs"])
+def test_negative_zero_ties_on_card(cuda_device, arm):
+    """Both arms of the path kernel: the planned arm's column min is then
+    a zero, whose ulp bound is the smallest subnormal."""
     hmm = _negative_zero_model()
     fd = _decoder(hmm, cuda_device)
+    t = getattr(fd, arm)
     v = torch.as_tensor(_negative_zero_carry(fd.n), device=cuda_device)
     obs = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
-    out, src = fused.path(fd._masked, fd.em, v, obs, None)
-    p_out, p_src = fused.path_plain(fd._masked, fd.em_t, v, obs, None)
+    out, src = fused.path(t, fd.em, v, obs, None)
+    p_out, p_src = fused.path_plain(t, fd.em_t, v, obs, None)
     torch.cuda.synchronize()
     assert torch.equal(out, p_out) and torch.equal(src, p_src)
     assert src[0, :, hmm.states_num - 1].tolist() == [3, 1]
@@ -296,7 +389,8 @@ def test_decoder_path_flow_goes_through_kernels(cuda_device):
     ragged = _seqs(rng, [3, 30, 17, 1], 20)
     fused.reset_launches()
     got = dec.decode_path_batch(uniform) + dec.decode_path_batch(ragged)
-    assert fused.launches["path"] == 2 and fused.launches["backtrace"] == 2
+    assert fused.launches["path_planned"] == 2 and fused.launches["backtrace"] == 2
+    assert fused.launches["path"] == 0
     for (sc, pa), s in zip(got, uniform + ragged):
         want_sc, want_pa = viterbi_path_oracle(hmm, s)
         np.testing.assert_array_equal(sc, want_sc)
@@ -313,7 +407,8 @@ def test_decoder_path_flow_goes_through_kernels(cuda_device):
     for a, b in ((1, 12), (12, 30)):
         st = eng.stream_feed_path(st, block[a:b])
     scores, paths = eng.stream_path_finalize(st)
-    assert fused.launches == {"scores_masked": 2, "scores_fs": 0, "path": 2, "backtrace": 2, **NO_WINDOW}
+    assert fused.launches == {"scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 2,
+                              "scores_masked_planned": 2, "path_planned": 2, **NO_WINDOW}
     for i, (sc, pa) in enumerate(got[:8]):
         np.testing.assert_array_equal(scores[i], sc)
         np.testing.assert_array_equal(paths[i], pa)
@@ -332,6 +427,69 @@ def test_path_wrappers_check_inputs(cuda_device):
         fused.backtrace(src.int(), last)
     with pytest.raises(ValueError, match="boundary"):
         fused.backtrace(src, last.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 128, 512])
+def test_both_arms_equal_plain_on_card(cuda_device, lanes):
+    """Both arms of svt_scores_masked and svt_path against their plain
+    versions on the same card tensors, ragged and uniform, masked and
+    unmasked, on a model with both plans: the planned arms take its
+    FsTables, the generic arms its MaskedTables; the arms equal each
+    other."""
+    hmm = generate_profile_hmm(126, seed=lanes)
+    fd = _decoder(hmm, cuda_device)
+    assert fd._fs_ok and fd._scores_arm is fd._fs and fd._path_arm is fd._fs
+    rng = np.random.default_rng(lanes)
+    for lengths in (rng.integers(1, 48, size=lanes), [40] * lanes):
+        st, ln, _ = fd.prepare(_seqs(rng, lengths, hmm.emit_num))
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        obs = st[1:]
+        for lens in (ln, None):
+            fused.reset_launches()
+            scores = [fused.scores_masked(t, fd.em, v0, obs, lens) for t in (fd._fs, fd._masked)]
+            paths = [fused.path(t, fd.em, v0, obs, lens) for t in (fd._fs, fd._masked)]
+            assert fused.launches == {**fused.launches, "scores_masked": 1, "scores_masked_planned": 1,
+                                      "path": 1, "path_planned": 1}
+            for t, got, (out, src) in zip((fd._fs, fd._masked), scores, paths):
+                want = fused.scores_masked_plain(t, fd.em_t, v0, obs, lens)
+                p_out, p_src = fused.path_plain(t, fd.em_t, v0, obs, lens)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+                assert torch.equal(out, p_out) and torch.equal(src, p_src)
+                assert torch.equal(out, got)
+            assert torch.equal(scores[0], scores[1])
+            assert torch.equal(paths[0][1], paths[1][1])
+
+
+@pytest.mark.cuda
+def test_rounding_collision_on_card(cuda_device):
+    """Both path kernels point the column target to the lower of two rows
+    whose sums collide, as the oracle does."""
+    hmm = _collision_model()
+    fd = _decoder(hmm, cuda_device)
+    last = hmm.states_num - 1
+    v0 = fd.pi[:, None].contiguous()
+    obs = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    for t in (fd._fs, fd._masked):
+        out, src = fused.path(t, fd.em, v0, obs, None)
+        p_out, p_src = fused.path_plain(t, fd.em_t, v0, obs, None)
+        torch.cuda.synchronize()
+        assert torch.equal(out, p_out) and torch.equal(src, p_src)
+        assert src[0, 0, last] == COLLISION_ROWS[0]
+    seq = np.array([0, 0], np.int32)
+    assert fd.decode_path_batch([seq])[0][1].tolist() == viterbi_path_oracle(hmm, seq)[1].tolist()
+
+
+@pytest.mark.cuda
+def test_planned_wrappers_check_inputs(cuda_device):
+    fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
+    st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 4], 20))
+    v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+    with pytest.raises(ValueError, match="lengths"):
+        fused.scores_masked(fd._fs, fd.em, v0, st[1:], ln.long())
+    with pytest.raises(ValueError, match="obs"):
+        fused.path(fd._fs, fd.em, v0, st[1:].long(), ln)
 
 
 def _tp_decoder(hmm, shards, chunk, device):
@@ -392,7 +550,7 @@ def test_window_kernels_equal_plain_on_card(cuda_device, offsets, chunk, shards,
     scores = tp.decode_batch(seqs)
     paths = tp.decode_path_batch(seqs)
     assert fused.launches == {
-        "scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 1,
+        "scores_masked": 0, "scores_fs": 0, "path": 0, "backtrace": 1, **NO_PLANNED,
         "scores_window": chunks, "path_window": chunks,
     }
     for s, sc, (psc, pa) in zip(seqs, scores, paths):
@@ -534,10 +692,10 @@ def test_probe_wrappers_check_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_scores_occupancy_on_card(cuda_device):
-    """The card reports registers and resident CTAs of both scores
-    kernels; at least one CTA of 256 threads fits an SM."""
+    """The card reports registers and resident CTAs of the scores and path
+    kernels, both arms each; at least one CTA of 256 threads fits an SM."""
     from spec_viterbi_tpu_torch.ops import probes
 
-    for kernel in ("fs", "masked"):
+    for kernel in probes.OCCUPANCY_KERNELS:
         regs, ctas = probes.scores_occupancy(kernel, 2432, cuda_device)
         assert 0 < regs <= 255 and 1 <= ctas <= 8

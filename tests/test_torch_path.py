@@ -17,7 +17,13 @@ import torch
 
 from test_property_random import _random_structured_hmm
 from test_torch_host import ref_from_port
-from test_torch_kernels import _negative_zero_carry, _negative_zero_model, _structured_model
+from test_torch_kernels import (
+    COLLISION_ROWS,
+    _collision_model,
+    _negative_zero_carry,
+    _negative_zero_model,
+    _structured_model,
+)
 
 from spec_viterbi_tpu.hmm import almost_equal_vec
 from spec_viterbi_tpu.models.decoder import ViterbiDecoder as RefDecoder
@@ -34,7 +40,7 @@ from spec_viterbi_tpu_torch.io.generators import (
     generate_tie_heavy_hmm,
 )
 from spec_viterbi_tpu_torch.ops import fused
-from spec_viterbi_tpu_torch.ops.structured import structured_mv_argmin
+from spec_viterbi_tpu_torch.ops.structured import StructuredOperator, structured_mv_argmin
 
 torch.set_num_threads(1)
 
@@ -171,6 +177,79 @@ def test_fused_path_batch_matches_oracle_and_pallas(case):
     for i, (ref_sc, ref_pa) in zip(some, pallas):
         np.testing.assert_array_equal(got[i][1], ref_pa)
         assert almost_equal_vec(got[i][0], ref_sc)
+
+
+@pytest.mark.parametrize("case", ["uniform", "ragged", "bucketed"])
+def test_planned_path_arm_matches_generic_oracle_and_jax(case):
+    """The planned arm of path (on the CPU: path_planned_plain, the
+    two-pass column argmin included) against the generic arm (carry and
+    pointers, masked and unmasked), and its decodes against the oracle,
+    the JAX XLA structured path and the Pallas path kernel in interpret
+    mode (at most 8 lanes)."""
+    name, seqs = CASES[case]
+    model = MODELS[name]
+    ref, fd = _pair(model)
+    assert fd._fs_ok and fd._path_arm is fd._fs
+    st, ln, _ = fd.prepare(seqs)
+    v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+    for lens in (ln, None):
+        out, src = fused.path_plain(fd._fs, fd.em_t, v0, st[1:], lens)
+        g_out, g_src = fused.path_plain(fd._masked, fd.em_t, v0, st[1:], lens)
+        assert torch.equal(out, g_out) and torch.equal(src, g_src)
+    got = fd.decode_path_batch(seqs)
+    _assert_oracle(model, seqs, got)
+    some = list(range(0, len(seqs), max(1, len(seqs) // 8)))[:8]
+    xla = RefDecoder(model, mode="structured", use_pallas=False)
+    for i, (ref_sc, ref_pa) in zip(some, ref.decode_path_batch([seqs[i] for i in some])):
+        want_sc, want_pa = xla.decode_path(seqs[i])
+        np.testing.assert_array_equal(got[i][0], want_sc)
+        np.testing.assert_array_equal(got[i][1], want_pa)
+        np.testing.assert_array_equal(got[i][1], ref_pa)
+
+
+@pytest.mark.parametrize("which", ["negative_zero", "collision"])
+def test_planned_step_matches_jax_argmin(which):
+    """One planned step against the JAX argmin step on the two hard cases
+    of the two-pass column argmin: a -0.0/+0.0 tie and a rounding
+    collision (two carries, one column sum); the column target points to
+    the lower row in both."""
+    if which == "negative_zero":
+        hmm = _negative_zero_model()
+        v = _negative_zero_carry(StructuredOperator.from_hmm(hmm).n)
+        want_last = [3, 1]
+    else:
+        hmm = _collision_model()
+        v = hmm.start_vector(pad_to=StructuredOperator.from_hmm(hmm).n)[:, None].astype(np.float32)
+        want_last = [COLLISION_ROWS[0]]
+    model = ref_from_port(hmm)
+    ref_sop = RefOperator.from_hmm(model)
+    _, fd = _pair(model)
+    assert fd._fs_ok and fd._path_arm is fd._fs
+    want_u, want_src = jax.vmap(
+        lambda vv: ref_mv_argmin(ref_sop, ref_sop.device_arrays(), vv), in_axes=1, out_axes=1
+    )(jnp.asarray(v))
+    obs = torch.zeros((1, v.shape[1]), dtype=torch.int32)
+    out, src = fused.path_plain(fd._fs, fd.em_t, torch.as_tensor(v), obs, None)
+    np.testing.assert_array_equal(src[0].numpy().T, np.asarray(want_src))
+    np.testing.assert_array_equal(out.numpy(), fd.em_t[:, :1].numpy() + np.asarray(want_u))
+    assert src[0, :, hmm.states_num - 1].tolist() == want_last
+
+
+def test_rounding_collision_path_matches_jax():
+    """The collision model's decoded path through the planned arm equals
+    the oracle's, the JAX XLA structured path's and the Pallas path
+    kernel's (interpret mode): the lower of the colliding rows."""
+    hmm = _collision_model()
+    model = ref_from_port(hmm)
+    ref, fd = _pair(model)
+    seq = np.array([0, 0], np.int32)
+    (sc, pa), = fd.decode_path_batch([seq])
+    _assert_oracle(model, [seq], [(sc, pa)])
+    assert pa.tolist() == [COLLISION_ROWS[0], hmm.states_num - 1]
+    want_sc, want_pa = RefDecoder(model, mode="structured", use_pallas=False).decode_path(seq)
+    np.testing.assert_array_equal(sc, want_sc)
+    np.testing.assert_array_equal(pa, want_pa)
+    np.testing.assert_array_equal(pa, ref.decode_path_batch([seq])[0][1])
 
 
 def test_path_budget_quantization_fallback():

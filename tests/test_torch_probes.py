@@ -454,13 +454,22 @@ def test_dense_oracle_equals_numpy_oracle():
 
 def test_bounds_convention():
     """The FS kernel at the serving shape is bound by its operations: 4
-    per state and step, 17.4 G at 2,432 × 512 × 3,499, over 33.45 T/s."""
-    work = bounds.fs_scores(2432, 512, 3499, 20)
+    per state and step, 17.4 G at 2,432 × 512 × 3,499, over 33.45 T/s.
+    One operator has one count, whichever kernel runs it: the corpus
+    shape's plans give 4 ops a state to the FS kernel, the masked kernel
+    and the path kernel alike (without the plans it would be 9)."""
+    step = bounds.operator_step(2432, 1, 1, 2, planned=True)
+    work = bounds.fs_scores(step, 512, 3499, 20)
     assert work.ops == 4 * 2432 * 512 * 3499
     ms, by = work.bound()
     assert by == "operations" and ms == pytest.approx(0.5207, rel=1e-3)
+    lane_steps = 512 * 3499
+    assert bounds.masked_scores(step, 512, 3499, lane_steps, 20, True).ops == work.ops
+    assert bounds.path(step, 512, 3499, lane_steps, 20, False).ops == work.ops
+    assert bounds.operator_step(2432, 1, 1, 2, planned=False).ops_per_state == 9
+    assert bounds.operator_step(2432, 2, 1, 1, planned=False).ops_per_state == 9
     # the path kernel's 4.36 GB of int16 pointers bound it by bytes
-    ms, by = bounds.path(2432, 1, 1, 2, 256, 3499, 256 * 3499, 20, False).bound()
+    ms, by = bounds.path(step, 256, 3499, 256 * 3499, 20, False).bound()
     assert by == "bytes" and ms == pytest.approx(1.30, rel=1e-2)
     assert bounds.backtrace(256, 3499).bound() == (pytest.approx(3499 * 256 * 6 / 3.35e9, rel=1e-3), "bytes")
     # the window path kernel writes pointers for the shards' own rows

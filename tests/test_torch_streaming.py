@@ -199,6 +199,38 @@ def test_ragged_lane_stream_paths(engine):
         assert (paths[i, len(s):] == want_pa[-1]).all()
 
 
+@pytest.mark.parametrize("width", [8, 13])
+def test_planned_arms_stream(width):
+    """A plan-eligible model streams through the planned arms (feeds:
+    the planned masked scores; finalize: the planned path): ragged lanes
+    with per-lane valid counts give the oracle's scores and paths, the
+    generic arms' bit for bit, and the JAX XLA stream engine's."""
+    eng = _engines(PROFILE)["fused"]
+    assert eng._fs_ok and eng._scores_arm is eng._fs and eng._path_arm is eng._fs
+    generic = _engines(PROFILE)["fused"]
+    generic._scores_arm = generic._path_arm = generic._masked
+    rng = np.random.default_rng(width)
+    seqs = [rng.integers(0, 20, size=t).astype(np.int32) for t in (31, 17, 44, 2, 1, 26)]
+    scores, paths = _ragged_feed(eng, seqs, width, paths=True)
+    g_scores, g_paths = _ragged_feed(generic, seqs, width, paths=True)
+    np.testing.assert_array_equal(scores, g_scores)
+    np.testing.assert_array_equal(paths, g_paths)
+    s_scores, _ = _ragged_feed(eng, seqs, width)
+    np.testing.assert_array_equal(s_scores, scores)
+    for i, s in enumerate(seqs):
+        want_sc, want_pa = port.viterbi_path_oracle(PROFILE, s)
+        np.testing.assert_array_equal(scores[i], want_sc)
+        np.testing.assert_array_equal(paths[i, : len(s)], want_pa)
+    model = ref_from_port(PROFILE)
+    ref_sop = RefOperator.from_hmm(model)
+    ref = RefXLAStream(ref_sop, model.emission_matrix(pad_to=ref_sop.n), model.start_vector(pad_to=ref_sop.n))
+    block = _block(rng, PROFILE, 1 + 2 * width, 3)
+    want_sc, want_pa = ref.stream_path_finalize(_feed(ref, block, [width, width], paths=True))
+    got_sc, got_pa = eng.stream_path_finalize(_feed(eng, block, [width, width], paths=True))
+    np.testing.assert_array_equal(got_sc, np.asarray(want_sc))
+    np.testing.assert_array_equal(got_pa, want_pa)
+
+
 @pytest.mark.parametrize("engine", ["fused", "plain"])
 def test_stream_validation(engine):
     eng = _engines(PROFILE)[engine]
