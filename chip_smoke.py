@@ -56,8 +56,10 @@ exits non-zero:
     one backtrace a path call); scores, paths and the global pointer
     tensor bit-equal to the unsharded kernels';
 14. ``tp_kernel_vs_plain``: both window kernels against their plain
-    versions on the first 4 chunks, uniform and ragged, and
-    ``decode_batch_emulated(check_path_kernel=True)`` on 128 lanes;
+    versions on the first 4 chunks, uniform and ragged, in the local form
+    and in the rank form of every shard (one window, window-local
+    pointers), and ``decode_batch_emulated(check_path_kernel=True)`` on
+    128 lanes;
 15. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
     a prefix and on a seeded tie-heavy banded model: bit-equal;
 16. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
@@ -66,7 +68,13 @@ exits non-zero:
     most 4), bit-equal to the local group; with one card it says so;
 18. time kernel and plain version of the window kernels (the whole TP
     decode, and kernel vs plain on the first 4 chunks, beside the
-    unsharded kernels on the same model and lanes);
+    unsharded kernels on the same model and lanes); then both window
+    kernels in both launch forms through the decoder's chunk loops
+    (``spec_viterbi_tpu_torch/probes/windows.py``: the local group, and one
+    rank's launches on a group with no peers), each with its bound, the
+    host's µs a chunk and the device's idle share; the device time of one
+    launch against its steps (0 to 1,024); and an ``occupancy_*_window``
+    line for each kernel;
 19. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
     uniform set, with the probe kernels' launch counts read around that
     run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
@@ -112,6 +120,13 @@ import numpy as np
 # and the median's repeats: the shapes the probes use too
 from spec_viterbi_tpu_torch.probes.common import LANES, REPEATS, STATES_MATCH, T_LEN
 
+# the state-sharded decode's banded model and schedule
+from spec_viterbi_tpu_torch.probes.windows import CHUNK as TP_CHUNK
+from spec_viterbi_tpu_torch.probes.windows import OFFSETS as TP_OFFSETS
+from spec_viterbi_tpu_torch.probes.windows import SHARDS as TP_SHARDS
+from spec_viterbi_tpu_torch.probes.windows import STATES as TP_STATES
+from spec_viterbi_tpu_torch.probes.windows import SYMBOLS as TP_SYMBOLS
+
 PROBE_SLICE = 64  # steps of the probe kernels' kernel-vs-plain slice
 PLAIN_PATH_REPEATS = 2  # the plain path scan takes seconds per call
 STREAM_CHUNKS = (999, 1500, 1000)  # after the first symbol: 3,500 in all
@@ -119,12 +134,6 @@ NO_OTHER_LAUNCHES = {"path": 0, "path_planned": 0, "backtrace": 0, "scores_windo
                      "path_window": 0}
 ZERO_LAUNCHES = {"scores_masked": 0, "scores_masked_planned": 0, "scores_fs": 0, **NO_OTHER_LAUNCHES}
 GENERIC_CHECK_STEPS = 511  # steps of the generic arms' kernel-vs-plain check outside the plans
-# the state-sharded decode's banded model and schedule
-TP_STATES = 2432
-TP_OFFSETS = (1, 3)
-TP_SYMBOLS = 4
-TP_SHARDS = 4
-TP_CHUNK = 16
 TP_PATH_LANES = 256  # the pointer comparison and the path timing
 TP_PLAIN_CHUNKS = 4  # chunks of the kernel-vs-plain checks and timings
 TP_EMULATED_LANES = 128
@@ -328,8 +337,8 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
         make_group,
     )
     from spec_viterbi_tpu_torch.parallel import fused_tp
-    from spec_viterbi_tpu_torch.probes import bounds
-    from spec_viterbi_tpu_torch.probes.common import median_ms
+    from spec_viterbi_tpu_torch.probes import bounds, windows
+    from spec_viterbi_tpu_torch.probes.common import Record, median_ms
 
     dev = torch.device("cuda")
 
@@ -402,6 +411,11 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
         return v, [(st[1:][k0:k1], len_c) for k0, k1, len_c in tp._chunks(st.shape[0] - 1, ln)][
             :TP_PLAIN_CHUNKS]
 
+    # the rank form of every shard: one window, window-local pointers
+    ranks = [fused_tp.WindowTables.build(sop.diag_offsets, t.dv, t.em, tp.block, tp.h_lo, tp.h_hi,
+                                         1, op_row0=r * tp.block, ptr_base=0)
+             for r in range(TP_SHARDS)]
+    check(t.staged and all(r.staged for r in ranks), "the banded model takes the staged window arm")
     for name, seqs in (("uniform", uniform), ("ragged", short)):
         v, cks = first_chunks(seqs[:LANES])
         for obs_c, len_c in cks:
@@ -409,6 +423,15 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
             same, err = equal_with_err(k, fused_tp.scores_window_plain(t, v, obs_c, len_c))
             check(same, f"scores window kernel == plain, {name}")
             errs["scores_window"] = max(errs["scores_window"], err)
+            for r, tr in enumerate(ranks):
+                w = v[r * tp.block : r * tp.block + tp.n_win].contiguous()
+                k_r = fused_tp.scores_window(tr, w, obs_c, len_c)
+                same, err = equal_with_err(k_r, fused_tp.scores_window_plain(tr, w, obs_c, len_c))
+                check(same, f"scores window kernel == plain, rank form of shard {r}, {name}")
+                check(torch.equal(k_r[tp.h_lo : tp.h_lo + tp.block],
+                                  k[r * tp.block + tp.h_lo : (r + 1) * tp.block + tp.h_lo]),
+                      f"rank form == local form, shard {r}")
+                errs["scores_window"] = max(errs["scores_window"], err)
             v = k
         v, cks = first_chunks(seqs[:TP_PATH_LANES])
         for obs_c, len_c in cks:
@@ -417,12 +440,20 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
             same, err = equal_with_err(k, p)
             check(same and torch.equal(k_bp, p_bp), f"path window kernel == plain, {name}")
             errs["path_window"] = max(errs["path_window"], err)
+            for r, tr in enumerate(ranks):
+                w = v[r * tp.block : r * tp.block + tp.n_win].contiguous()
+                k_r, k_rbp = fused_tp.path_window(tr, w, obs_c, len_c)
+                p_r, p_rbp = fused_tp.path_window_plain(tr, w, obs_c, len_c)
+                same, err = equal_with_err(k_r, p_r)
+                check(same and torch.equal(k_rbp, p_rbp),
+                      f"path window kernel == plain, rank form of shard {r}, {name}")
+                errs["path_window"] = max(errs["path_window"], err)
             v = k
     emulated = tp.decode_batch_emulated(uniform[:TP_EMULATED_LANES], check_path_kernel=True)
     check(all(np.array_equal(g, w) for g, w in zip(emulated, scores_u)),
           "decode_batch_emulated(check_path_kernel=True) == decode_batch")
     phase("tp_kernel_vs_plain", chunks=TP_PLAIN_CHUNKS, scores_lanes=LANES,
-          path_lanes=TP_PATH_LANES, emulated_lanes=TP_EMULATED_LANES,
+          path_lanes=TP_PATH_LANES, emulated_lanes=TP_EMULATED_LANES, rank_forms=TP_SHARDS,
           **{f"{k}_max_abs_err": e for k, e in errs.items()})
 
     # ---- tp_oracle: against viterbi_path_oracle ---------------------------
@@ -517,6 +548,7 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
         bound_ms, bound_by = work(span_steps, len(cks)).bound()
         decode_bound_ms, decode_bound_by = work(steps, chunks).bound()
         floors.append((f"window_b{lanes}", tp.n_win, lanes * TP_SHARDS))
+        floors.append((f"window_rank_b{lanes}", tp.n_win, lanes))
         phase("time", kernel=name, card=card, lanes=lanes, shards=TP_SHARDS, steps=steps,
               decode_ms=decode_ms, decode_us_per_step=decode_ms * 1e3 / steps,
               decode_bound_ms=decode_bound_ms, decode_bound_by=decode_bound_by,
@@ -533,6 +565,17 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
             "library_ms": None, "shape": f"{lanes} lanes x {span_steps} steps, {len(cks)} launches",
             "decode_launches": chunks, "decode_ms": decode_ms, "decode_bound_ms": decode_bound_ms,
         })
+
+    # both forms through the decoder's chunk loops: the local group's and
+    # one rank's launches (S = 1, no peers), with the host's us a chunk and
+    # the device's idle share; registers and CTAs an SM of both kernels
+    rec = Record(card, tag="time")
+    forms = windows.run(rec, dev, seed)
+    windows.launch_costs(rec, dev, seed)
+    windows.occupancy(Record(card, tag="occupancy"), dev, seed)
+    for e in kernels:
+        e["rank_form_ms"] = forms[f"rank_{e['name']}"]["ms"]
+        e["host_us_per_chunk"] = forms[f"local_{e['name']}"]["host_us_per_chunk"]
     return kernels, floors
 
 

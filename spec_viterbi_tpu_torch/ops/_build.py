@@ -43,6 +43,11 @@ MAX_CANDS = 216
 # usable shared memory of one block on an H100 (bytes)
 MAX_SMEM = 232448
 
+# the window kernels' staged arm (csrc/window.cu): shared memory a CTA at
+# most, lanes a CTA
+WINDOW_STAGED_SMEM = 56 * 1024
+WINDOW_STAGED_LANES = 4
+
 SP_USE_ACC = 1
 SP_SHARED = 2
 ST_SHARED = 1
@@ -162,10 +167,12 @@ def library() -> ctypes.CDLL:
     lib.svt_path_occupancy.restype = i32
     lib.svt_backtrace.argtypes = [vp] * 3 + [i32, i32, i32, vp]
     lib.svt_backtrace.restype = i32
-    lib.svt_scores_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 + [i32] * 3 + [vp]
+    lib.svt_scores_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 + [i32] * 5 + [vp]
     lib.svt_scores_window.restype = i32
-    lib.svt_path_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 5 + [i32] * 5 + [vp]
+    lib.svt_path_window.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 5 + [i32] * 7 + [vp]
     lib.svt_path_window.restype = i32
+    lib.svt_window_occupancy.argtypes = [i32] * 6 + [vp] * 3
+    lib.svt_window_occupancy.restype = i32
     lib.svt_probe_pass.argtypes = [i32, i32] + [vp] * 6 + [i32] * 5 + [vp]
     lib.svt_probe_pass.restype = i32
     lib.svt_probe_emsel.argtypes = [i32] + [vp] * 4 + [i32] * 4 + [vp]

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -90,6 +91,21 @@ def fused_tp_supported(sop: StructuredOperator, shards: int, chunk: int) -> bool
 # ---- the window kernels ----------------------------------------------------
 
 
+def _guard(diag_offsets) -> int:
+    """+inf guard rows either side of a window carry in the kernels' shared
+    memory: max|d| (csrc/window.cu)."""
+    return max((abs(d) for d in diag_offsets), default=0)
+
+
+def window_smem(staged: bool, n_win: int, n_diag: int, n_em: int, guard: int) -> int:
+    """Shared memory (bytes) a CTA of the window kernels takes: the staged
+    arm's tables [E + D, n_win] and its lanes' double-buffered carries of
+    ``n_win + 2·guard`` rows; the global arm one lane's carries."""
+    tables = (n_em + n_diag) * n_win if staged else 0
+    lanes = _build.WINDOW_STAGED_LANES if staged else 1
+    return 4 * (tables + lanes * 2 * (n_win + 2 * guard))
+
+
 @dataclasses.dataclass(frozen=True)
 class WindowTables:
     """What the window kernels need of one banded operator on one device:
@@ -99,7 +115,10 @@ class WindowTables:
     Window ``s`` of a launch reads carry rows ``[s·block, s·block + n_win)``
     and operand rows ``op_row0 + s·block + ...``, and writes its interior
     rows ``[h_lo, h_lo + block)``; its pointers are ``window source +
-    ptr_base + s·block``.
+    ptr_base + s·block``. ``staged`` is the kernels' arm, chosen once from
+    the shapes: the window's tables in shared memory where they fit
+    ``WINDOW_STAGED_SMEM`` with four lanes' carries, else read from global
+    memory.
     """
 
     desc: _build.ScoresDesc  # the window operator: n = n_win, the diagonals
@@ -112,8 +131,9 @@ class WindowTables:
     ptr_base: int  # pointer stored for row 0 of the first window
     # per window, for the plain versions: the window operator (diagonal
     # values +inf where the source lies outside the window, as the
-    # kernel's bounds check), its tensors and the emission table [n_win, E]
+    # kernel's guard rows), its tensors and the emission table [n_win, E]
     windows: tuple[tuple[StructuredOperator, OperatorTensors, torch.Tensor], ...]
+    staged: bool  # the kernels' arm
 
     @classmethod
     def build(cls, diag_offsets, dv: torch.Tensor, em: torch.Tensor, block: int,
@@ -123,8 +143,12 @@ class WindowTables:
             raise ValueError("windows reach past the padded operand rows")
         if len(diag_offsets) > _build.MAX_DIAG:
             raise ValueError(f"operator has {len(diag_offsets)} diagonals; the kernel takes {_build.MAX_DIAG}")
+        if any(x % 2 for x in (block, h_lo, h_hi)):
+            raise ValueError("window geometry must be even (the kernels store pointers in pairs)")
         desc = _build.ScoresDesc(n=n_win, n_diag=len(diag_offsets))
         desc.diag_off[: len(diag_offsets)] = diag_offsets
+        staged = (window_smem(True, n_win, len(diag_offsets), em.shape[0], _guard(diag_offsets))
+                  <= _build.WINDOW_STAGED_SMEM)
         rows = np.arange(n_win)
         dv_np = dv.cpu().numpy()
         windows = []
@@ -141,7 +165,7 @@ class WindowTables:
                 res_vals=np.zeros(0, np.float32), nnz=0,
             )
             windows.append((op, op.to(dv.device), em[:, r0 : r0 + n_win].T.contiguous()))
-        return cls(desc, dv, em, block, h_lo, shards, op_row0, ptr_base, tuple(windows))
+        return cls(desc, dv, em, block, h_lo, shards, op_row0, ptr_base, tuple(windows), staged)
 
     @property
     def n_win(self) -> int:
@@ -151,6 +175,18 @@ class WindowTables:
     def rows(self) -> int:
         """Rows of the carries a launch reads and writes."""
         return (self.shards - 1) * self.block + self.n_win
+
+    @functools.cached_property
+    def launch_head(self) -> tuple:
+        """The leading arguments of every launch of these tables."""
+        return (ctypes.byref(self.desc), self.dv.data_ptr(), self.em.data_ptr(), self.dv.shape[1],
+                self.op_row0, self.block, self.h_lo)
+
+    @property
+    def smem(self) -> int:
+        """Shared memory (bytes) a CTA of this arm takes."""
+        offsets = self.desc.diag_off[: self.desc.n_diag]
+        return window_smem(self.staged, self.n_win, self.desc.n_diag, self.em.shape[0], _guard(offsets))
 
     @property
     def ptr_max(self) -> int:
@@ -168,13 +204,12 @@ def _check_ptr_range(t: WindowTables) -> None:
         raise ValueError(f"pointers up to {t.ptr_max} do not fit int16 backpointers")
 
 
-def _check_window(t: WindowTables, v_in, obs, lengths, out=None, bp=None) -> None:
-    """What the window kernels take: contiguous CUDA tensors of one device."""
-    dev = v_in.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    if 2 * t.n_win * 4 > _build.MAX_SMEM:
+def _check_operands(t: WindowTables, v_in, obs, lengths, out=None, bp=None) -> None:
+    """What the window kernels take, whatever the device: contiguous
+    tensors of one device, of the launch's shapes and types."""
+    if t.smem > _build.MAX_SMEM:
         raise ValueError(f"a window of {t.n_win} rows does not fit one block's shared memory")
+    dev = v_in.device
     b, steps = v_in.shape[1], obs.shape[0]
     want = [
         (t.dv, torch.float32, tuple(t.dv.shape), "dv"),
@@ -199,8 +234,32 @@ def _check_window(t: WindowTables, v_in, obs, lengths, out=None, bp=None) -> Non
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_window(t: WindowTables, v_in, obs, lengths, out=None, bp=None) -> None:
+    """What the window kernels take: :func:`_check_operands` on CUDA."""
+    if v_in.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v_in.device}")
+    _check_operands(t, v_in, obs, lengths, out, bp)
+
+
 def _new_carry(v_in: torch.Tensor) -> torch.Tensor:
     return torch.full_like(v_in, float("inf"))
+
+
+def _launch(lib, t: WindowTables, v_in: int, obs: int, lengths: int, out: int, batch: int,
+            steps: int, stream: int, bp: int | None = None) -> None:
+    """One launch of a window kernel on checked tensors, given as device
+    addresses: svt_path_window where ``bp`` is given, else
+    svt_scores_window."""
+    head = (*t.launch_head, v_in, obs, lengths, out)
+    tail = (t.em.shape[0], int(t.staged), stream)
+    if bp is None:
+        _build.check(lib, lib.svt_scores_window(*head, batch, t.shards, steps, *tail),
+                     "svt_scores_window")
+        fused.launches["scores_window"] += 1
+    else:
+        _build.check(lib, lib.svt_path_window(*head, bp, t.shards * t.block, t.ptr_base, batch,
+                                              t.shards, steps, *tail), "svt_path_window")
+        fused.launches["path_window"] += 1
 
 
 def scores_window_plain(t: WindowTables, v_in, obs, lengths, out=None) -> torch.Tensor:
@@ -228,14 +287,8 @@ def scores_window(t: WindowTables, v_in, obs, lengths, out=None) -> torch.Tensor
         return out
     lib = _build.library()
     with torch.cuda.device(v_in.device):
-        rc = lib.svt_scores_window(
-            ctypes.byref(t.desc), t.dv.data_ptr(), t.em.data_ptr(), t.dv.shape[1],
-            t.op_row0, t.block, t.h_lo, v_in.data_ptr(), obs.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, t.shards, obs.shape[0],
-            torch.cuda.current_stream(v_in.device).cuda_stream,
-        )
-        _build.check(lib, rc, "svt_scores_window")
-        fused.launches["scores_window"] += 1
+        _launch(lib, t, v_in.data_ptr(), obs.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
+                obs.shape[0], torch.cuda.current_stream(v_in.device).cuda_stream)
     return out
 
 
@@ -274,15 +327,27 @@ def path_window(t: WindowTables, v_in, obs, lengths, out=None, bp=None):
         return out, bp
     lib = _build.library()
     with torch.cuda.device(v_in.device):
-        rc = lib.svt_path_window(
-            ctypes.byref(t.desc), t.dv.data_ptr(), t.em.data_ptr(), t.dv.shape[1],
-            t.op_row0, t.block, t.h_lo, v_in.data_ptr(), obs.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), bp.data_ptr(), t.shards * t.block, t.ptr_base, b, t.shards, steps,
-            torch.cuda.current_stream(v_in.device).cuda_stream,
-        )
-        _build.check(lib, rc, "svt_path_window")
-        fused.launches["path_window"] += 1
+        _launch(lib, t, v_in.data_ptr(), obs.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
+                steps, torch.cuda.current_stream(v_in.device).cuda_stream, bp=bp.data_ptr())
     return out, bp
+
+
+def window_occupancy(t: WindowTables, kernel: str, device) -> tuple[int, int, int]:
+    """(registers a thread, resident CTAs an SM, lanes a CTA) of the arm of
+    ``svt_scores_window`` (``kernel="scores"``) or ``svt_path_window``
+    (``"path"``) that ``t`` runs, as the card reports them."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    offsets = t.desc.diag_off[: t.desc.n_diag]
+    lib = _build.library()
+    regs, ctas, lanes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = lib.svt_window_occupancy(
+            {"scores": 0, "path": 1}[kernel], int(t.staged), t.n_win, t.desc.n_diag,
+            max(abs(d) for d in offsets), t.em.shape[0],
+            ctypes.byref(regs), ctypes.byref(ctas), ctypes.byref(lanes))
+    _build.check(lib, rc, "svt_window_occupancy")
+    return regs.value, ctas.value, lanes.value
 
 
 # ---- the decoder -------------------------------------------------------------
@@ -364,16 +429,66 @@ class FusedTPDecoder:
         seqs_t, lengths, _ = fused.stage_batch(seqs, self.emit_num, self.device)
         return seqs_t, lengths
 
+    def _chunk_lengths(self, steps: int, lengths: torch.Tensor) -> torch.Tensor:
+        """[n_chunks, B] int32: the lengths each chunk of ``steps`` steps
+        hands the window kernel. Chunk k starts at symbol s0 = 1 + k·c
+        (symbol 0 is the initial carry), so a lane of length L takes
+        clip(L − s0 + 1, 1, c + 1) − 1 of its steps."""
+        c = self.chunk
+        s0 = 1 + c * torch.arange(-(-steps // c), dtype=torch.int32, device=lengths.device)
+        return torch.clamp(lengths[None, :] - s0[:, None] + 1, 1, c + 1).to(torch.int32).contiguous()
+
     def _chunks(self, steps: int, lengths: torch.Tensor):
         """[(first step, end step, lengths [B] int32)] of the chunks of
-        ``steps`` steps. Chunk k starts at symbol s0 = 1 + k·c (symbol 0 is
-        the initial carry), so a lane of length L takes clip(L − s0 + 1, 1,
-        c + 1) − 1 of its steps; the last chunk has the remaining steps."""
+        ``steps`` steps; the last chunk has the remaining steps."""
         c = self.chunk
-        n_chunks = -(-steps // c)
-        s0 = 1 + c * torch.arange(n_chunks, dtype=torch.int32, device=lengths.device)
-        len_c = torch.clamp(lengths[None, :] - s0[:, None] + 1, 1, c + 1).to(torch.int32)
-        return [(k * c, min(steps, (k + 1) * c), len_c[k]) for k in range(n_chunks)]
+        len_c = self._chunk_lengths(steps, lengths)
+        return [(k * c, min(steps, (k + 1) * c), len_c[k]) for k in range(len_c.shape[0])]
+
+    def _run_chunks(self, t: WindowTables, v, obs, lengths, bp=None, exchange=None):
+        """Every chunk of ``obs`` [T-1, B] through the window kernel from the
+        carry ``v``: the path kernel into ``bp`` where it is given, else the
+        scores kernel; ``exchange(carry)`` refreshes the halo rows after
+        each chunk. Returns the last carry.
+
+        The tensors are checked once a call, as the wrappers check them;
+        on CUDA each chunk is then one launch at offsets into them (no
+        per-chunk checks or views), on the CPU the wrappers' plain
+        versions."""
+        nxt = _new_carry(v)
+        len_c = self._chunk_lengths(obs.shape[0], lengths)
+        c, steps, b = self.chunk, obs.shape[0], v.shape[1]
+        spans = [(k, k * c, min(steps, (k + 1) * c)) for k in range(len_c.shape[0])]
+        if not spans:
+            return v
+        on_cpu = v.device.type == "cpu"
+        (_check_operands if on_cpu else _check_window)(t, v, obs, len_c[0], out=nxt, bp=bp)
+        if bp is not None:
+            _check_ptr_range(t)
+        carries = (v, nxt)
+        if on_cpu or b == 0:
+            for k, k0, k1 in spans:
+                src, dst = carries[k % 2], carries[1 - k % 2]
+                if bp is None:
+                    scores_window(t, src, obs[k0:k1], len_c[k], out=dst)
+                else:
+                    path_window(t, src, obs[k0:k1], len_c[k], out=dst, bp=bp[k0:k1])
+                if exchange is not None:
+                    exchange(dst)
+            return carries[len(spans) % 2]
+        lib = _build.library()
+        ptrs = (v.data_ptr(), nxt.data_ptr())
+        step_bytes = b * 4  # one step of obs, one chunk of len_c
+        bp_step = b * t.shards * t.block * 2
+        with torch.cuda.device(v.device):
+            stream = torch.cuda.current_stream(v.device).cuda_stream
+            for k, k0, k1 in spans:
+                _launch(lib, t, ptrs[k % 2], obs.data_ptr() + k0 * step_bytes,
+                        len_c.data_ptr() + k * step_bytes, ptrs[1 - k % 2], b, k1 - k0, stream,
+                        bp=None if bp is None else bp.data_ptr() + k0 * bp_step)
+                if exchange is not None:
+                    exchange(carries[1 - k % 2])
+        return carries[len(spans) % 2]
 
     def _run_local(self, seqs_t, lengths, path: bool, check_path_kernel: bool = False):
         """All K shards on this device: [T, B] symbols → (carry [n, B],
@@ -382,27 +497,24 @@ class FusedTPDecoder:
         v = self._em_t[:, seqs_t[0].long()] + self._pi[:, None]  # [P, B]
         # the kernels write interior rows only, so the guard rows of both
         # carries stay +inf: the JAX package's `valid` re-mask
-        nxt = _new_carry(v)
         obs = seqs_t[1:]
         bp = None
         if path:
             if self.n > fused.INT16_STATES:
                 raise ValueError(f"{self.n} states do not fit int16 backpointers; use a distributed group")
             bp = torch.empty((obs.shape[0], v.shape[1], self.n), dtype=torch.int16, device=v.device)
+        if not check_path_kernel:
+            # the exchange: the next chunk's windows read the fresh interiors
+            v = self._run_chunks(t, v, obs, lengths, bp)
+            return v[self.h_lo : self.h_lo + self.n], bp
+        nxt = _new_carry(v)
         for k, (k0, k1, len_c) in enumerate(self._chunks(obs.shape[0], lengths)):
             obs_c = obs[k0:k1]
-            if path:
-                path_window(t, v, obs_c, len_c, out=nxt, bp=bp[k0:k1])
-            else:
-                scores_window(t, v, obs_c, len_c, out=nxt)
-                if check_path_kernel:
-                    out_pk, _ = path_window(t, v, obs_c, len_c)
-                    # both kernels are exact f32: the carries agree bit for bit
-                    if not torch.equal(out_pk, nxt):
-                        raise AssertionError(
-                            f"window path kernel diverged from the scores kernel (chunk {k})"
-                        )
-            # the exchange: the next chunk's windows read the fresh interiors
+            scores_window(t, v, obs_c, len_c, out=nxt)
+            out_pk, _ = path_window(t, v, obs_c, len_c)
+            # both kernels are exact f32: the carries agree bit for bit
+            if not torch.equal(out_pk, nxt):
+                raise AssertionError(f"window path kernel diverged from the scores kernel (chunk {k})")
             v, nxt = nxt, v
         return v[self.h_lo : self.h_lo + self.n], bp
 
@@ -413,18 +525,12 @@ class FusedTPDecoder:
         w0 = g.rank * self.block
         win = slice(w0, w0 + self.n_win)
         v = self._em_t[win][:, seqs_t[0].long()] + self._pi[win, None]  # [n_win, B]
-        nxt = _new_carry(v)
         obs = seqs_t[1:]
         bp = None
         if path:
             bp = torch.empty((obs.shape[0], v.shape[1], self.block), dtype=torch.int16, device=v.device)
-        for k0, k1, len_c in self._chunks(obs.shape[0], lengths):
-            if path:
-                path_window(t, v, obs[k0:k1], len_c, out=nxt, bp=bp[k0:k1])
-            else:
-                scores_window(t, v, obs[k0:k1], len_c, out=nxt)
-            g.exchange_halo(nxt, self.h_lo, self.block, self.h_hi)
-            v, nxt = nxt, v
+        v = self._run_chunks(t, v, obs, lengths, bp,
+                             exchange=lambda w: g.exchange_halo(w, self.h_lo, self.block, self.h_hi))
         return v[self.h_lo : self.h_lo + self.block], bp
 
     def _backtrace_sharded(self, bp, last):

@@ -270,8 +270,108 @@ def test_path_int16_limit():
     tp = _port_tp(sop, em, pi, 8, 2)
     t = tp._local
     big = fused_tp.WindowTables(t.desc, t.dv, t.em, t.block, t.h_lo, t.shards, t.op_row0,
-                                fused.INT16_STATES, t.windows)
+                                fused.INT16_STATES, t.windows, t.staged)
     v = torch.zeros((t.rows, 1))
     obs = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="int16"):
         fused_tp.path_window(big, v, obs, torch.full((1,), 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("emit,staged", [(4, True), (100, False)])
+def test_window_tables_choose_the_arm_from_the_shapes(emit, staged):
+    """WindowTables.build takes the staged arm where the window's tables
+    and four lanes' carries fit the staged budget, else the global arm;
+    the local and rank tables of one model agree, and the choice follows
+    window_smem exactly at the budget's edge."""
+    hmm = generate_banded_hmm(256, (-1, 2), emit, seed=1)
+    sop = StructuredOperator.from_hmm(hmm)
+    tp = _port_tp(sop, hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n), 8, 2)
+    t = tp._local
+    assert t.staged == staged
+    rank = fused_tp.WindowTables.build(sop.diag_offsets, t.dv, t.em, tp.block, tp.h_lo, tp.h_hi,
+                                       1, op_row0=tp.block, ptr_base=0)
+    assert rank.staged == staged
+    guard = 2  # max|d|
+    want = fused_tp.window_smem(True, tp.n_win, 2, emit, guard) <= fused_tp._build.WINDOW_STAGED_SMEM
+    assert want == staged
+    assert t.smem == fused_tp.window_smem(staged, tp.n_win, 2, emit, guard)
+    # the largest emission table that still stages at this window
+    fits = (fused_tp._build.WINDOW_STAGED_SMEM // 4 - 4 * 2 * (tp.n_win + 2 * guard)) // tp.n_win - 2
+    for e, arm in ((fits, True), (fits + 1, False)):
+        em = torch.zeros((e, t.dv.shape[1]))
+        built = fused_tp.WindowTables.build(sop.diag_offsets, t.dv, em, tp.block, tp.h_lo, tp.h_hi,
+                                            2, op_row0=0, ptr_base=-tp.h_lo)
+        assert built.staged == arm, e
+
+
+def test_window_tables_refuse_odd_geometry():
+    _, _, sop, em, pi = _model((1,), seed=1)
+    t = _port_tp(sop, em, pi, 8, 2)._local
+    with pytest.raises(ValueError, match="even"):
+        fused_tp.WindowTables.build(sop.diag_offsets, t.dv, t.em, t.block, t.h_lo - 1, 1, 1,
+                                    op_row0=0, ptr_base=0)
+    with pytest.raises(ValueError, match="even"):
+        fused_tp.WindowTables.build(sop.diag_offsets, t.dv, t.em, t.block - 1, t.h_lo, 0, 1,
+                                    op_row0=0, ptr_base=0)
+
+
+def _bad_loop_inputs():
+    """(name, what to break, the error's text): each breaks one tensor the
+    chunk loop hands the window kernel."""
+    return [
+        ("obs", lambda v, obs, ln, bp: (v, obs.long(), ln, bp), "obs: want torch.int32"),
+        ("rows", lambda v, obs, ln, bp: (v[1:], obs, ln, bp), "v_in: want torch.float32"),
+        ("layout", lambda v, obs, ln, bp: (v.T.contiguous().T, obs, ln, bp), "v_in must be contiguous"),
+        ("carry_type", lambda v, obs, ln, bp: (v.double(), obs, ln, bp), "v_in: want torch.float32"),
+        ("bp", lambda v, obs, ln, bp: (v, obs, ln, bp.int()), "bp: want torch.int16"),
+        ("bp_width", lambda v, obs, ln, bp: (v, obs, ln, bp[:, :, 1:]), "bp: want torch.int16"),
+    ]
+
+
+@pytest.mark.parametrize("name,broken,message", _bad_loop_inputs())
+def test_chunk_loop_checks_inputs_once_as_the_wrappers(name, broken, message):
+    """The decoder's chunk loop checks its tensors once a call and raises
+    what the wrappers raise for the same tensor: the same _check_operands
+    message, before any chunk runs."""
+    _, _, sop, em, pi = _model((-1, 1), seed=3)
+    tp = _port_tp(sop, em, pi, 4, 2)
+    st, ln = tp._stage(_seqs(np.random.default_rng(3), [9, 13, 4], 4))
+    t = tp._local
+    v = tp._em_t[:, st[0].long()] + tp._pi[:, None]
+    obs = st[1:]
+    bp = torch.empty((obs.shape[0], v.shape[1], tp.n), dtype=torch.int16)
+    v_b, obs_b, ln_b, bp_b = broken(v, obs, ln, bp)
+    fused.reset_launches()
+    with pytest.raises(ValueError) as loop_err:
+        tp._run_chunks(t, v_b, obs_b, ln_b, bp_b)
+    assert message in str(loop_err.value)
+    # the wrappers' own check, on the first chunk's views of the same tensors
+    len_c = tp._chunk_lengths(obs.shape[0], ln)
+    with pytest.raises(ValueError) as wrapper_err:
+        fused_tp._check_operands(t, v_b, obs_b, len_c[0], out=torch.full_like(v_b, np.inf), bp=bp_b)
+    assert str(loop_err.value) == str(wrapper_err.value)
+    if name == "obs":
+        with pytest.raises(ValueError, match=message):
+            tp._run_local(st.long(), ln, path=False)
+
+
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_solo_rank_window_equals_local_group_on_one_chunk(rank):
+    """The window probe's rank form: a rank on a group with no peers runs
+    its window as the local group does while no halo exchange is due (one
+    chunk): the same interior carry, and its window-local pointers are the
+    local group's global ones less rank·block − h_lo (a dead row stores 0
+    in both)."""
+    from spec_viterbi_tpu_torch.probes.windows import SoloRank
+
+    _, _, sop, em, pi = _model((-1, 2), seed=6)
+    local = _port_tp(sop, em, pi, 8, 4)
+    solo = FusedTPDecoder(sop, em, pi, SoloRank(rank, 4, "cpu"), chunk=8)
+    st, ln = local._stage(_seqs(np.random.default_rng(6), [1, 5, 9, 9], 4))
+    carry, bp = local._run_local(st, ln, path=True)
+    interior, bp_r = solo._run_rank(st, ln, path=True)
+    rows = slice(rank * local.block, (rank + 1) * local.block)
+    assert torch.equal(interior, carry[rows])
+    glob = bp[:, :, rows].int()
+    assert bool(((bp_r.int() + rank * local.block - local.h_lo == glob) | ((bp_r == 0) & (glob == 0))).all())
+    assert torch.equal(solo._run_rank(st, ln, path=False)[0], interior)

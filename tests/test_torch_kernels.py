@@ -135,6 +135,49 @@ def _collision_model(states=40):
     )
 
 
+def _planned_columns_model(states, n_cols, seed):
+    """A model inside the uniform plans with ``n_cols`` dense columns: the
+    +1 diagonal, a uniform dense row out of state 0, and near-uniform dense
+    columns into seeded targets (every state but 0 enters each at the
+    column's base cost). With at most 5 columns the first has one
+    deviating entry: that row leaves the shared support, so every column
+    takes it as a scalar fix (5 fixes, within the plan's 8). Costs are
+    given as they are."""
+    rng = np.random.default_rng(seed)
+    targets = sorted(rng.choice(np.arange(2, states), size=n_cols, replace=False).tolist())
+    cost = {(i, i + 1): float(rng.uniform(0.5, 4.0)) for i in range(1, states - 1)}
+    for m, c in enumerate(targets):
+        base = float(rng.uniform(1.0, 6.0))
+        cost.update({(i, c): base for i in range(1, states)})
+        if m == 0 and n_cols <= 5:
+            cost[(int(rng.integers(1, states)), c)] = base - 0.5
+    cost.update({(0, j): 3.0 for j in range(states)})
+    keys = sorted(cost)
+    return HMM(
+        states_num=states,
+        emit_num=5,
+        trans_rows=np.array([k[0] for k in keys], np.int64),
+        trans_cols=np.array([k[1] for k in keys], np.int64),
+        trans_probs=np.array([cost[k] for k in keys], np.float32),
+        emissions=rng.uniform(0.0, 3.0, size=(5, states)).astype(np.float32),
+        start_probabilities_cols=np.arange(states, dtype=np.int64),
+        start_probabilities=rng.uniform(0.0, 8.0, size=states).astype(np.float32),
+    )
+
+
+def _planned_column_models():
+    """Plan-eligible operators past two dense columns: 5 columns (the
+    planned kernels' C_CAP 8 instantiation) and 16 (C_CAP 24)."""
+    return [
+        pytest.param(_planned_columns_model(200, 5, seed=1), 8, id="cols5"),
+        pytest.param(_planned_columns_model(600, 16, seed=2), 24, id="cols16"),
+    ]
+
+
+def _column_cap(n_col):
+    return 2 if n_col <= 2 else 8 if n_col <= 8 else 24
+
+
 def _argmin_of_carry(v, shared, base, m):
     """The shortcut the two-pass argmin replaces: the lowest shared row
     holding the min of the carry, not the lowest whose sum reaches it."""
@@ -243,6 +286,27 @@ def test_rounding_collision_points_to_lower_row(monkeypatch):
     _, src = fused.path_plain(fd._fs, fd.em_t, v0, obs, None)
     assert src[0, 0, last] == COLLISION_ROWS[1]
     assert fd.decode_path_batch([seq])[0][1].tolist() != want_pa.tolist()
+
+
+@pytest.mark.parametrize("hmm,cap", _planned_column_models())
+def test_planned_plain_with_many_columns_matches_oracle(hmm, cap):
+    """The planned plain versions on operators with 5 and 16 dense columns
+    equal the generic ones and the oracle, ragged and uniform."""
+    fd = _decoder(hmm, "cpu")
+    assert fd._fs_ok and fd._path_arm is fd._fs and _column_cap(fd._fs.desc.n_col) == cap
+    rng = np.random.default_rng(cap)
+    seqs = _seqs(rng, [1, 2, 9, 24, 24], hmm.emit_num)
+    for lengths in ([len(s) for s in seqs], [24] * 5):
+        st, ln, _ = fd.prepare([np.resize(s, t) for s, t in zip(seqs, lengths)])
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        out, src = fused.path_plain(fd._fs, fd.em_t, v0, st[1:], ln)
+        g_out, g_src = fused.path_plain(fd._masked, fd.em_t, v0, st[1:], ln)
+        assert torch.equal(out, g_out) and torch.equal(src, g_src)
+        assert torch.equal(fused.scores_masked_plain(fd._fs, fd.em_t, v0, st[1:], ln), out)
+    for (sc, pa), s in zip(fd.decode_path_batch(seqs), seqs):
+        want_sc, want_pa = viterbi_path_oracle(hmm, s)
+        np.testing.assert_array_equal(sc, want_sc)
+        np.testing.assert_array_equal(pa, want_pa)
 
 
 @pytest.fixture
@@ -482,6 +546,38 @@ def test_rounding_collision_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hmm,cap", _planned_column_models())
+@pytest.mark.parametrize("lanes", [1, 37])
+def test_planned_arms_many_columns_on_card(cuda_device, hmm, cap, lanes):
+    """The C_CAP 8 and 24 instantiations of svt_path_planned (5 and 16
+    dense columns) and svt_scores_masked_planned against their plain
+    versions, ragged and uniform, masked and unmasked; the path decode
+    through them against the oracle."""
+    fd = _decoder(hmm, cuda_device)
+    assert fd._fs_ok and fd._path_arm is fd._fs and _column_cap(fd._fs.desc.n_col) == cap
+    rng = np.random.default_rng(lanes)
+    for lengths in (rng.integers(1, 40, size=lanes), [30] * lanes):
+        st, ln, _ = fd.prepare(_seqs(rng, lengths, hmm.emit_num))
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        obs = st[1:]
+        for lens in (ln, None):
+            fused.reset_launches()
+            got = fused.scores_masked(fd._fs, fd.em, v0, obs, lens)
+            out, src = fused.path(fd._fs, fd.em, v0, obs, lens)
+            assert fused.launches["scores_masked_planned"] == 1 and fused.launches["path_planned"] == 1
+            p_out, p_src = fused.path_plain(fd._fs, fd.em_t, v0, obs, lens)
+            torch.cuda.synchronize()
+            assert torch.equal(got, fused.scores_masked_plain(fd._fs, fd.em_t, v0, obs, lens))
+            assert torch.equal(out, p_out) and torch.equal(src, p_src)
+            assert torch.equal(out, got)
+    seqs = _seqs(rng, rng.integers(1, 40, size=lanes), hmm.emit_num)
+    for (sc, pa), s in zip(fd.decode_path_batch(seqs), seqs[:5]):
+        want_sc, want_pa = viterbi_path_oracle(hmm, s)
+        np.testing.assert_array_equal(sc, want_sc)
+        np.testing.assert_array_equal(pa, want_pa)
+
+
+@pytest.mark.cuda
 def test_planned_wrappers_check_inputs(cuda_device):
     fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
     st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 4], 20))
@@ -519,19 +615,35 @@ def _window_cases(tp, rng, lanes):
             yield t, v[r * tp.block : r * tp.block + tp.n_win].contiguous(), obs, len_c
 
 
+# (offsets, chunk, shards, tie-heavy, symbols): D = 1..MAX_DIAG with
+# negative, zero and positive offsets; 4 symbols take the staged arm, 120
+# and 200 (tables past the staged budget) the global arm; no window is a
+# multiple of a CTA's rows a pass
+WINDOW_CASES = [
+    ((1,), 8, 2, False, 4), ((-1, 1), 4, 4, False, 4), ((0, 2), 4, 4, False, 4),
+    ((-1, 1), 8, 2, True, 4), ((-2, 0, 1), 4, 4, False, 4), ((-3, -1, 0, 2), 4, 2, False, 4),
+    ((-2, -1, 0, 1, 2), 4, 4, False, 4), ((-3, -2, -1, 1, 2, 3), 4, 2, True, 4),
+    ((-3, -2, -1, 0, 1, 2, 3), 4, 2, False, 4), ((-4, -3, -2, -1, 0, 1, 2, 3), 4, 2, False, 4),
+    ((1,), 8, 2, False, 120), ((-2, 0, 1), 4, 4, False, 200), ((-1, 1), 8, 2, True, 120),
+]
+# (states, offsets, chunk, shards): windows of more than one pass
+WIDE_WINDOW_CASES = [(1024, (-1, 2), 16, 2), (2048, (1, 3), 16, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "offsets,chunk,shards,tie",
-    [((1,), 8, 2, False), ((-1, 1), 4, 4, False), ((0, 2), 4, 4, False), ((-1, 1), 8, 2, True)],
-)
-def test_window_kernels_equal_plain_on_card(cuda_device, offsets, chunk, shards, tie):
+@pytest.mark.parametrize("offsets,chunk,shards,tie,symbols", WINDOW_CASES)
+def test_window_kernels_equal_plain_on_card(cuda_device, offsets, chunk, shards, tie, symbols):
     """svt_scores_window and svt_path_window against their plain versions
-    (carry and pointers) on the same card tensors, local and rank forms,
-    uniform and ragged; then the TP decode through them against the
-    oracle, with its launch counts."""
+    (carry and pointers) on the same card tensors, local and rank forms of
+    every shard, uniform and ragged (37 lanes: the last CTA of 4 lanes
+    holds one, and the lanes of a CTA freeze at different steps); then the
+    TP decode through them against the oracle, with its launch counts."""
     gen = generate_tie_heavy_banded_hmm if tie else generate_banded_hmm
-    hmm = gen(256, offsets, 4, seed=shards)
+    hmm = gen(256, offsets, symbols, seed=shards)
     tp = _tp_decoder(hmm, shards, chunk, cuda_device)
+    assert sorted(tp.sop.diag_offsets) == sorted(offsets)
+    assert tp._local.staged == (symbols == 4)
+    assert tp.n_win % 256
     rng = np.random.default_rng(shards)
     for t, v, obs, lens in _window_cases(tp, rng, 37):
         got = fused_tp.scores_window(t, v, obs, lens)
@@ -560,6 +672,43 @@ def test_window_kernels_equal_plain_on_card(cuda_device, offsets, chunk, shards,
         np.testing.assert_array_equal(pa, want_pa)
     emulated = tp.decode_batch_emulated(seqs, check_path_kernel=True)
     assert all(np.array_equal(a, b) for a, b in zip(emulated, scores))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states,offsets,chunk,shards", WIDE_WINDOW_CASES)
+def test_wide_windows_equal_plain_on_card(cuda_device, states, offsets, chunk, shards):
+    """Windows of 560 rows, three row-pair passes of a 128-thread lane:
+    both kernels against their plain versions, local and rank forms."""
+    tp = _tp_decoder(generate_banded_hmm(states, offsets, 4, seed=states), shards, chunk, cuda_device)
+    assert tp.n_win > 2 * 256 and tp._local.staged
+    for t, v, obs, lens in _window_cases(tp, np.random.default_rng(states), 9):
+        out, bp = fused_tp.path_window(t, v, obs, lens)
+        p_out, p_bp = fused_tp.path_window_plain(t, v, obs, lens)
+        got = fused_tp.scores_window(t, v, obs, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused_tp.scores_window_plain(t, v, obs, lens))
+        assert torch.equal(out, p_out) and torch.equal(bp, p_bp) and torch.equal(out, got)
+
+
+@pytest.mark.cuda
+def test_window_occupancy_on_card(cuda_device):
+    """The card reports registers, resident CTAs and lanes a CTA of both
+    window kernels in both arms; the staged scores arm holds the local
+    form's 2,048 lane-windows of the banded smoke model (2,432 states, 4
+    shards, chunk 16) in one wave."""
+    hmm = generate_banded_hmm(2432, (1, 3), 4, seed=0)
+    tp = _tp_decoder(hmm, 4, 16, cuda_device)
+    assert tp._local.staged and tp.n_win == 656
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for kernel in ("scores", "path"):
+        regs, ctas, lanes = fused_tp.window_occupancy(tp._local, kernel, cuda_device)
+        assert 0 < regs <= 255 and ctas >= 1 and lanes == 4
+        if kernel == "scores":
+            assert ctas * lanes * sms >= 512 * 4
+    big = _tp_decoder(generate_banded_hmm(256, (1,), 120, seed=0), 2, 8, cuda_device)
+    assert not big._local.staged
+    regs, ctas, lanes = fused_tp.window_occupancy(big._local, "path", cuda_device)
+    assert lanes == 1 and ctas >= 1
 
 
 @pytest.mark.cuda
