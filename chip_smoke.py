@@ -42,6 +42,14 @@ exits non-zero:
     the ragged set through the path stream with per-lane valid counts and
     a save/load round trip in the middle (paths and scores equal to
     ``decode_path_batch``'s), the feeds and finalize on the planned arms;
+    then the uniform and ragged ``decode_path_batch`` and the stream's
+    finalize again, every ``svt_backtrace`` launch held to
+    ``backtrace_plain`` and to the staged walk's emulation
+    (``probes/emulation.py``) on its own pointer tensor, and the same for
+    a TP and a DP path call (steps 13 and 16): the ``backtrace_misses``
+    line, the emulation's misses a lane of each call; then ``fs_shape``,
+    the shape ``svt_scores_fs`` takes at 512, 256 and 128 lanes (threads a
+    lane, lanes a CTA, registers, CTAs an SM);
 12. ``generic_main`` and ``generic_kernel_vs_plain``: a model outside the
     uniform plans (the seeded tie-heavy model at 2,405 states) through
     ``decode_batch`` and ``decode_path_batch`` of a ragged set, with the
@@ -83,9 +91,14 @@ exits non-zero:
     CTA; the FS kernel and both arms of the masked kernel at 128 to 1,024
     lanes; registers and CTAs an SM of these and of both path arms), S4
     (the ablation table of the generic masked arm);
-    the chain floor of each production kernel's shape; then each probe
-    kernel against its plain version on a 64-step slice, every class,
-    scheme and flag, bit-equal;
+    the chain floor of each production kernel's shape (the empty step; for
+    the backtrace the ``chase`` probe's hop in shared memory and through a
+    4.36 GB table, ``chain_floor_chase_shared``/``_hbm``, and
+    ``svt_backtrace`` through that table, every step a miss, and through
+    identity pointers, none: ``backtrace_random``/``_identity``, each
+    bit-equal to its plain version); then each
+    probe kernel against its plain version on a 64-step slice, every
+    class, scheme and flag, bit-equal;
 20. time kernel and plain version of the scores kernels at the uniform
     shape and the path kernels at one 256-lane call (median of 5; the
     plain path scans on fewer repeats, as their lines say), each arm of
@@ -94,7 +107,8 @@ exits non-zero:
     ``rank``: per kernel and arm, the sum over one call of its main path
     of (time - bound), the order in which the kernels lose most against
     their bounds (the generic arms on the same calls, marked as off the
-    corpus model's main path).
+    corpus model's main path). The FS kernel's and the backtrace's
+    ``time``, ``rank`` and ``kernels`` entries carry their chain floors.
 
 Every ``kernels`` entry carries its bound (``spec_viterbi_tpu_torch/
 probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
@@ -158,6 +172,35 @@ def equal_with_err(a, b) -> tuple[bool, float]:
     fin = torch.isfinite(a) & torch.isfinite(b)
     err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
     return torch.equal(a, b) and same_inf, err
+
+
+def checked_backtraces(label: str, fn, calls: list):
+    """Run ``fn()`` with every ``svt_backtrace`` launch held, on the same
+    tensors, against ``backtrace_plain`` and against the staged walk's
+    emulation (``probes/emulation.py``), bit for bit; each call's misses a
+    lane (the emulation's count) go to ``calls``. Returns ``fn()``."""
+    import torch
+
+    from spec_viterbi_tpu_torch.ops import fused
+    from spec_viterbi_tpu_torch.probes import emulation
+
+    kernel = fused.backtrace
+
+    def checked(src, boundary):
+        rev = kernel(src, boundary)
+        emu, misses = emulation.backtrace_staged(src, boundary)
+        check(torch.equal(rev, fused.backtrace_plain(src, boundary)), f"svt_backtrace == plain, {label}")
+        check(torch.equal(rev, emu), f"staged walk emulation == svt_backtrace, {label}")
+        calls.append({"call": label, "steps": src.shape[0], "lanes": src.shape[1], "n": src.shape[2],
+                      "misses_a_lane_mean": float(misses.double().mean()),
+                      "misses_a_lane_min": int(misses.min()), "misses_a_lane_max": int(misses.max())})
+        return rev
+
+    fused.backtrace = checked
+    try:
+        return fn()
+    finally:
+        fused.backtrace = kernel
 
 
 def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_file: str,
@@ -314,13 +357,15 @@ def generic_main(seed: int, lengths) -> tuple[dict, dict]:
     return counts, errs
 
 
-def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list, list]:
+def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r, bt_calls: list) -> tuple[list, list]:
     """The phases ``tp_main``, ``tp_kernel_vs_plain``, ``tp_oracle``,
     ``dp``, ``tp_dist`` and the window kernels' ``time`` lines. ``fd``,
     ``ragged`` and ``scores_r`` are the corpus model's fused decoder, ragged
-    set and ``decode_batch`` scores. Returns the window kernels' entries
-    of the ``kernels`` line, and the shapes of their launches as (name,
-    window rows, CTAs) for the chain floor."""
+    set and ``decode_batch`` scores; the backtrace launches of a TP and a
+    DP path call, each held to its plain version, add their misses to
+    ``bt_calls``. Returns the window kernels' entries of the ``kernels``
+    line, and the shapes of their launches as (name, window rows, CTAs)
+    for the chain floor."""
     import torch
 
     from spec_viterbi_tpu_torch import viterbi_path_oracle
@@ -394,6 +439,9 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
     check(torch.equal(carry, out) and torch.equal(bp, src),
           f"TP global pointers == svt_path ({TP_PATH_LANES} x {T_LEN - 1} x {tp.n})")
     del carry, bp, out, src
+    again = checked_backtraces("TP decode_path_batch, local group", lambda: tp.decode_path_batch(
+        uniform[:TP_PATH_LANES]), bt_calls)
+    check(all(np.array_equal(p, w) for (_, p), (_, w) in zip(again, paths_u)), "TP paths again")
     phase("tp_main", states=hmm.states_num, offsets=list(TP_OFFSETS), shards=TP_SHARDS,
           chunk=TP_CHUNK, n_win=tp.n_win, chunks=chunks, seconds=secs, launches=counts,
           pointer_bytes=(T_LEN - 1) * LANES * tp.n * 2,
@@ -491,7 +539,8 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
           f"dp launches {dp_counts}")
     check(all(np.array_equal(g, w) for g, w in zip(dp_scores, scores_r)),
           "DP scores == single-device decode_batch")
-    want_p = fd.decode_path_batch(ragged[:DP_PATH_LANES])
+    want_p = checked_backtraces("DP path decode (its single-device call)",
+                                lambda: fd.decode_path_batch(ragged[:DP_PATH_LANES]), bt_calls)
     check(all(np.array_equal(sc, wsc) and np.array_equal(p, wp)
               for (sc, p), (wsc, wp) in zip(dp_paths, want_p)),
           "DP paths == single-device decode_path_batch")
@@ -579,13 +628,15 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r) -> tuple[list
     return kernels, floors
 
 
-def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> list:
+def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> tuple[list, dict]:
     """``probes``: the H100 probes on the uniform set ``seqs_t`` [T, B] of
     the corpus model (``hmm``, its fused decoder ``fd``), the launch counts
     of the probe kernels read around that run, the chain floors (the
-    window kernels' launch shapes ``window_floors`` from :func:`tp_and_dp`),
+    window kernels' launch shapes ``window_floors`` from :func:`tp_and_dp`;
+    the backtrace's hop in shared memory and through a 4.36 GB table),
     then each probe kernel against its plain version on a 64-step slice.
-    Returns the probe kernels' entries of the ``kernels`` line."""
+    Returns the probe kernels' entries of the ``kernels`` line and the
+    chain floors in ms by name."""
     import torch
 
     from spec_viterbi_tpu_torch.ops import fused, probes
@@ -611,9 +662,14 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> list:
     # the chain floor: the empty step at each production kernel's carry
     # length and CTA count (window kernels: n_win rows, lanes x shards CTAs)
     steps = T_LEN - 1
-    laneblock.empty_floor(rec, [
+    empty = laneblock.empty_floor(rec, [
         ("scores_b512", N_STATES, LANES), ("path_b256", N_STATES, TP_PATH_LANES), *window_floors,
     ], steps, seed, dev)
+    chase = laneblock.chase_floor(rec, TP_PATH_LANES, N_STATES, steps, seed, dev)
+    check(chase["backtrace_random"]["bit_equal"] and chase["backtrace_identity"]["bit_equal"],
+          "svt_backtrace == plain on random and identity pointers")
+    floors = {"scores_fs": empty["scores_b512"]["floor_ms"],
+              "backtrace": chase["chase"]["floor_ms"], "backtrace_hbm": chase["chase_hbm"]["floor_ms"]}
 
     # each probe kernel against its plain version on a 64-step slice
     inp = PassInputs.make(N_STATES, LANES, PROBE_SLICE, seed + 5, dev)
@@ -630,10 +686,18 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> list:
 
     cases = [("empty", 0, lpc, sym) for lpc in (1, 2, 4) for sym in (False, True)]
     cases += [("stream", 4, 1, False), ("neighbour", 4, 1, False), ("colred", 4, 1, False),
-              ("bcast", 4, 1, False), ("emission", 2, 1, False), ("twosym", 0, 1, False)]
+              ("bcast", 4, 1, False), ("emission", 2, 1, False), ("twosym", 0, 1, False),
+              ("chase", 3, 1, False), ("chase_hbm", 2, 1, False)]
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    chase_tabs = {
+        "chase": torch.randperm(N_STATES, generator=g, device=dev).to(torch.int16),
+        "chase_hbm": torch.randint(0, N_STATES, (2 * PROBE_SLICE, LANES, N_STATES), generator=g, device=dev,
+                                   dtype=torch.int16),
+    }
     for cls, p, lpc, sym in cases:
         obs = inp.obs if (sym or cls in ("emission", "twosym")) else None
-        args = dict(obs=obs, cols=inp.cols, bufs=inp.bufs, tab=inp.tabs if cls == "twosym" else inp.em, p=p)
+        tab = chase_tabs.get(cls, inp.tabs if cls == "twosym" else inp.em)
+        args = dict(obs=obs, cols=inp.cols, bufs=inp.bufs, tab=tab, p=p)
         held("probe_pass", f"{cls} p={p} lanes/CTA={lpc}",
              lambda: probes.probe_pass(cls, inp.v0, PROBE_SLICE, lanes_per_cta=lpc, **args),
              lambda: probes.probe_pass_plain(cls, inp.v0, PROBE_SLICE, **args),
@@ -687,7 +751,7 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> list:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "shape": f"{what}, {LANES} lanes x {PROBE_SLICE} steps",
         })
-    return kernels
+    return kernels, floors
 
 
 def main() -> int:
@@ -982,9 +1046,30 @@ def main() -> int:
     stream_counts["path"] = dict(fused.launches)
     phase("stream", seconds=ssecs, launches=stream_counts, chunks=list(STREAM_CHUNKS))
 
+    # ---- every backtrace call of the main path again, each held to its
+    # plain version and to the staged walk's emulation, which counts its
+    # misses
+    bt_calls = []
+    for label, fn, want in (
+        ("uniform decode_path_batch", lambda: dec.decode_path_batch(uniform), paths_u),
+        ("ragged decode_path_batch (buckets)", lambda: dec.decode_path_batch(ragged), paths_r),
+    ):
+        got = checked_backtraces(label, fn, bt_calls)
+        check(all(np.array_equal(p, w) for (_, p), (_, w) in zip(got, want)), f"{label} again")
+    again = checked_backtraces("path stream finalize (chunks)", lambda: eng.stream_path_finalize(st), bt_calls)
+    check(np.array_equal(again[1], paths_s), "path stream finalize again")
+
     generic_counts, generic_errs = generic_main(args.seed, lengths)
-    window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r)
-    probe_kernels = probes_phase(args.seed, card, hmm, fd, seqs_t, window_floors)
+    window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r, bt_calls)
+    main_calls = [c for c in bt_calls if not c["call"].startswith(("TP", "DP"))]
+    lane_calls = sum(c["lanes"] for c in main_calls)
+    phase("backtrace_misses", card=card, band=_build.BT_BAND, tile=_build.BT_TILE, ahead=_build.BT_AHEAD,
+          calls=bt_calls, main_path_misses_a_lane=sum(c["misses_a_lane_mean"] * c["lanes"]
+                                                       for c in main_calls) / lane_calls,
+          bit_equal=True)
+    phase("fs_shape", card=card, **{f"lanes_{b}": fused.scores_fs_shape(fd.n, b, dev)
+                                    for b in (LANES, TP_PATH_LANES, 128)})
+    probe_kernels, floors = probes_phase(args.seed, card, hmm, fd, seqs_t, window_floors)
 
     # ---- times at the uniform shape: each arm of the masked and path
     # kernels on the corpus model's inputs (the planned arms are what its
@@ -1014,12 +1099,18 @@ def main() -> int:
             median_ms(lambda: fused.scores_masked(arm[name], fd.em, v0, obs, lens_t)),
             median_ms(lambda: fused.scores_masked_plain(arm[name], fd.em_t, v0, obs, lens_t)),
         )
+    # the chain floors (probes phase): the empty step at the FS kernel's
+    # shape; for the backtrace, a shared-memory hop a step (the staged
+    # walk) beside one load of the 4.36 GB tensor a step (the walk before)
+    chain = {"scores_fs": {"chain_floor_ms": floors["scores_fs"]},
+             "backtrace": {"chain_floor_ms": floors["backtrace"],
+                           "chain_floor_one_load_a_step_ms": floors["backtrace_hbm"]}}
     for name, (ms, plain_ms) in timed.items():
         phase("time", kernel=name, card=card, lanes=LANES, steps=steps,
               ms=ms, us_per_step=ms * 1e3 / steps, symbols_per_s=LANES * T_LEN / (ms / 1e3),
               plain_ms=plain_ms, plain_us_per_step=plain_ms * 1e3 / steps,
               plain_symbols_per_s=LANES * T_LEN / (plain_ms / 1e3),
-              bound_ms=bound[name][0], bound_by=bound[name][1])
+              bound_ms=bound[name][0], bound_by=bound[name][1], **chain.get(name, {}))
     pv0, pobs = path_args
     for name in ("path_planned", "path"):
         bound[name] = bounds.path(op_step, half, steps, half * steps, hmm.emit_num, False).bound()
@@ -1038,7 +1129,7 @@ def main() -> int:
               us_per_step=ms * 1e3 / steps, repeats=REPEATS, plain_ms=plain_ms,
               plain_us_per_step=plain_ms * 1e3 / steps,
               plain_repeats=REPEATS if name == "backtrace" else PLAIN_PATH_REPEATS,
-              bound_ms=bound[name][0], bound_by=bound[name][1])
+              bound_ms=bound[name][0], bound_by=bound[name][1], **chain.get(name, {}))
 
     # ---- each kernel's loss against its bound on its main path: a uniform
     # run_batch (FS); a ragged decode_batch (the masked kernel, one launch a
@@ -1059,6 +1150,10 @@ def main() -> int:
     for name in ("path_planned", "path"):
         add(name, calls, timed[name][0], bounds.path(op_step, half, steps, half * steps, hmm.emit_num, False))
     add("backtrace", calls, timed["backtrace"][0], bounds.backtrace(half, steps))
+    # the chain floor of a main-path call: the FS launch's, and a
+    # shared-memory hop for every step of every backtrace launch
+    hop_ms = floors["backtrace"] / steps
+    call_floor = {"scores_fs": floors["scores_fs"], "backtrace": calls * steps * hop_ms}
     bucket_times = []
     for idx, t_q in plan:
         st, ln, _ = fd.prepare([ragged[i] for i in idx], t_pad=t_q)
@@ -1080,6 +1175,7 @@ def main() -> int:
         row["backtrace_ms"] = median_ms(lambda: fused.backtrace(src, last))
         del out, src
         add("backtrace", 1, row["backtrace_ms"], bounds.backtrace(b_lanes, b_steps))
+        call_floor["backtrace"] += b_steps * hop_ms
         bucket_times.append(row)
     phase("time", kernel="ragged_buckets", card=card, buckets=bucket_times)
     for e in window_kernels:
@@ -1089,7 +1185,8 @@ def main() -> int:
     on_main = {"scores_masked": False, "path": False}  # the corpus main path runs the planned arms
     phase("rank", card=card, by="sum over a main path's launches of (time - bound), ms",
           order=[{"name": name, "launches": n, "ms": ms, "bound_ms": b, "loss_ms": loss,
-                  "on_corpus_main_path": on_main.get(name, True)}
+                  "on_corpus_main_path": on_main.get(name, True),
+                  **({"chain_floor_ms": call_floor[name]} if name in call_floor else {})}
                  for name, n, ms, b, loss in rank])
 
     # launches: the planned arms' from the corpus model's main path, the
@@ -1111,7 +1208,7 @@ def main() -> int:
          "replaces": replaces, "launches": launched[name], "max_abs_err": err,
          "ms": timed[name][0], "plain_ms": timed[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": None,
-         "shape": f"{lanes} lanes x {steps} steps"}
+         "shape": f"{lanes} lanes x {steps} steps", **chain.get(name, {})}
         for name, src, replaces, launched, err, lanes in entries
     ] + window_kernels + probe_kernels
     print(json.dumps({"kernels": kernels}))

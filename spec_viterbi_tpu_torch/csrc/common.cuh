@@ -45,6 +45,8 @@ struct ScoresDesc {
 // Flags of the planned per-state byte table.
 #define ST_SHARED 1   // in the shared column support
 #define ST_BULK 2     // shared and not special: reduced inside the bulk pass
+#define ST_SPECIAL 4  // a special row (svt_scores_fs forms it in its bulk pass)
+#define ST_USE_ACC 8  // a special row that starts from the bulk candidate
 
 // One operator of the uniform plans (single diagonal d, uniform dense rows
 // as scalar candidates, the dense columns as one shared min plus scalar
@@ -78,15 +80,17 @@ static inline int set_smem(const void* fn, size_t bytes) {
 }
 
 // Registers a thread and resident CTAs an SM of kernel `fn` with `smem`
-// bytes of dynamic shared memory, as the card reports them.
-static inline int occupancy_of(const void* fn, size_t smem, int* regs, int* ctas_per_sm) {
+// bytes of dynamic shared memory and CTAs of `threads`, as the card
+// reports them.
+static inline int occupancy_of(const void* fn, size_t smem, int* regs, int* ctas_per_sm,
+                               int threads = SVT_THREADS) {
   int rc = set_smem(fn, smem);
   if (rc) return rc;
   cudaFuncAttributes attr;
   rc = (int)cudaFuncGetAttributes(&attr, fn);
   if (rc) return rc;
   *regs = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, SVT_THREADS, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, threads, smem);
 }
 
 // Steps lane b takes out of `steps`: it freezes once step t+1 reaches its

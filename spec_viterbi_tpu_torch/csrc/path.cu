@@ -12,7 +12,7 @@
 //                  plans (the FS class): the planned arm, below.
 //   svt_backtrace  replaces spec_viterbi_tpu/ops/fused_pallas.py::
 //                  _backtrace_kernel: the reverse walk through src from a
-//                  boundary state, one thread per lane.
+//                  boundary state, one warp a lane, staged (below).
 //
 // Tie rule of svt_path, the oracle's np.argmin: a lexicographic min over
 // (value, source) among finite candidates. The lowest source wins a tie, a
@@ -38,7 +38,8 @@
 // - svt_backtrace: one dependent load per step per lane (the next state is
 //   the address of the next load), so latency bounds it, not bandwidth. The
 //   TPU kernel picked the pointer through a one-hot min over all states
-//   because a TPU has no per-lane gather; here it is one load.
+//   because a TPU has no per-lane gather; here it is one load, from a band
+//   staged in shared memory ahead of the walk.
 
 #include "common.cuh"
 
@@ -353,16 +354,241 @@ path_planned_kernel(const FsDesc desc, const float* __restrict__ dv,
   for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
 }
 
+// ---- svt_backtrace: the staged walk -----------------------------------
+//
 // rev[t, b] = src[t, b, rev[t + 1, b]], starting from rev[steps, b] =
 // boundary[b]; rev[t, b] is lane b's state at position t.
-__global__ void backtrace_kernel(const short* __restrict__ src, const int* __restrict__ boundary,
-                                 int* __restrict__ rev, int batch, int n, int steps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  int state = boundary[b];
-  for (int t = steps - 1; t >= 0; --t) {
-    state = src[((size_t)t * batch + b) * n + state];
-    rev[(size_t)t * batch + b] = state;
+//
+// Each step is one pointer load whose address is the last load's value.
+// Read from src, a tensor of gigabytes that the path kernel has just
+// written, that is one HBM latency and a TLB walk a step (0.55 us on an
+// H100). The walk itself cannot be shortened, but where it goes can be
+// guessed: on the main path's operators a state mostly steps back by the
+// diagonal or stays, and jumps now and then. So one warp walks one lane,
+// and BT_AHEAD tiles of BT_TILE steps ahead of the walk it copies, for
+// each step, a band of BT_BAND pointers of that step's row around the
+// predicted state into a ring in shared memory (cp.async, 16 bytes a
+// copy; 2 * BT_BAND + 16 bytes a step, where the bound counts 2). The prediction
+// is the state at the tile's start plus the drift of the stretch just
+// walked; each step also stages the 16 bytes that hold its row's state 0,
+// where half the main path's jumps land. A step is then one shared-memory
+// load, and the HBM latency is paid once for the copies in flight, not
+// once a step.
+//
+// A state outside its step's band (a jump through a dense row or column,
+// a dead row's 0, a drift the stretch did not show) is a miss: the warp
+// reads that pointer from src itself and, while the load is in flight,
+// places the bands of every step not yet walked again from there. A miss
+// right after a miss that jumped (the walk is adrift, as through random
+// pointers) only reads its pointer: bands placed there would miss again,
+// and each placement costs the warp more than its read. The pointer read
+// never depends on the bands, so the path is exact by construction; the
+// bands move only where the warp waits.
+// probes/emulation.py::backtrace_staged is this walk in torch, with the
+// same constants (ops/_build.py passes them as -D flags) and misses.
+
+#define BT_K SVT_BT_TILE
+#define BT_W SVT_BT_BAND
+#define BT_AHEAD SVT_BT_AHEAD
+#define BT_SLOTS (BT_AHEAD + 1)
+#define BT_CHUNKS (BT_W / 8)  // 16-byte copies a band
+#define BT_ROW (BT_W + 8)     // a step's staged pointers: the band, then the hub chunk
+#define BT_WARPS 2            // lanes (one a warp) a CTA
+#define BT_LAST (BT_SLOTS * BT_K)  // past a warp's hub starts: its last miss's row and state
+#define BT_NO_BAND (-(1 << 30))
+static_assert(BT_W % 8 == 0 && BT_K <= 32 && BT_AHEAD >= 1, "backtrace tile constants");
+
+// What every lane of a walking warp knows of the tensor: its shape, the
+// lane it walks, and the 16-byte-aligned element range [lo_al, hi_al)
+// the copies may read (mis: elements from src to the 16-byte boundary
+// below it).
+struct BtGeom {
+  const short* src;
+  long long lo_al, hi_al;
+  int mis, batch, n, steps, b;
+  bool banded;
+};
+
+__device__ __forceinline__ long long bt_align_down(long long x, int mis) { return x - ((x + mis) & 7); }
+
+__device__ __forceinline__ void bt_copy16(short* smem_dst, const short* gmem_src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void bt_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void bt_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows r_hi down to r_lo, one lane a row: the band of BT_W pointers
+// around the state predicted from the anchor (state as enters row ar) and
+// the drift dq / 2^16 a step, held inside the row where it can be, and the
+// hub chunk, the 16 bytes that hold the row's state 0 (where the dense
+// columns of the main path's operators and every dead row lead). rel and
+// hub get the row-relative starts of both. The caller commits.
+__device__ __forceinline__ void bt_issue(const BtGeom& g, short* ring, int* rel, int* hub, int r_hi,
+                                         int r_lo, int ar, int as, int dq, int lane) {
+  for (int r = r_hi - lane; r >= r_lo; r -= 32) {
+    const int q = g.steps - 1 - r;
+    const int at = (q / BT_K) % BT_SLOTS * BT_K + q % BT_K;
+    const long long base = ((long long)r * g.batch + g.b) * g.n;
+    int lo = BT_NO_BAND, hl = BT_NO_BAND;
+    if (g.banded) {
+      const int pred = as + (int)(((long long)dq * (ar - r) + 32768) >> 16);
+      long long a = bt_align_down(base + max(pred - BT_W / 2, 0), g.mis);
+      a = min(a, bt_align_down(base + g.n + 7, g.mis) - BT_W);
+      a = max(g.lo_al, min(a, g.hi_al - BT_W));
+      const long long h = max(g.lo_al, min(bt_align_down(base, g.mis), g.hi_al - 8));
+      lo = (int)(a - base);
+      hl = (int)(h - base);
+      short* dst = ring + at * BT_ROW;
+#pragma unroll
+      for (int c = 0; c < BT_CHUNKS; ++c) bt_copy16(dst + c * 8, g.src + a + c * 8);
+      bt_copy16(dst + BT_W, g.src + h);
+    }
+    rel[at] = lo;
+    hub[at] = hl;
+  }
+}
+
+// The drift of the stretch since (ref_r, ref_s), once it is
+// SVT_BT_MIN_ROWS steps long, as 2^16 times the state's change a step
+// (|s - ref_s| < 2^15, so the product fits 32 bits).
+__device__ __forceinline__ void bt_learn(int r, int s, int ref_r, int ref_s, int& dq) {
+  const int rows = ref_r - r;
+  if (rows >= SVT_BT_MIN_ROWS) dq = (s - ref_s) * 65536 / rows;
+}
+
+// A miss at row r of the tile that starts at row r0 (state s enters r):
+// the pointer itself, and, while it is in flight, the rows after it staged
+// again from here, one group for the rest of this tile and one for each
+// tile after it (end: the last row in flight). No copy is in flight to
+// this tile's slot, so its rows go out with the pointer load; the tiles
+// ahead wait for their first copies to land, and the warp then waits for
+// this tile's rows alone, not for the tiles ahead and then this tile's
+// rows in turn (0.94 against 1.04 us a step through random pointers on
+// an H100, PERF.md section 5). Adrift (the
+// miss before was row r + 1's and jumped), the pointer alone: the warp
+// keeps its last miss's row and state after the hub starts, so the walk's
+// loop carries nothing for it. Out of line, so that loop stays small;
+// returns the pointer and the drift.
+__device__ __noinline__ int2 bt_miss(const BtGeom g, short* ring, int* rel, int* hub, int r0, int r,
+                                     int s, int end, int ref_r, int ref_s, int dq, int lane) {
+  const int s_new = g.src[((long long)r * g.batch + g.b) * g.n + s];
+  const int last_r = hub[BT_LAST], last_s = hub[BT_LAST + 1];
+  __syncwarp();
+  if (lane == 0) {
+    hub[BT_LAST] = r;
+    hub[BT_LAST + 1] = s;
+  }
+  __syncwarp();
+  if (last_r == r + 1 && abs(s - last_s) > SVT_BT_JUMP) return make_int2(s_new, dq);
+  bt_learn(r, s, ref_r, ref_s, dq);
+  bt_issue(g, ring, rel, hub, r - 1, max(r0 - BT_K + 1, 0), r, s, dq, lane);
+  bt_commit();
+  bt_wait<1>();  // the copies already in flight, all to the tiles ahead
+  __syncwarp();
+  for (int x = 1; x <= BT_AHEAD; ++x) {
+    const int top = r0 - x * BT_K;
+    if (top >= end) bt_issue(g, ring, rel, hub, top, max(top - BT_K + 1, end), r, s, dq, lane);
+    bt_commit();
+  }
+  bt_wait<BT_AHEAD>();
+  __syncwarp();
+  return make_int2(s_new, dq);
+}
+
+__global__ void __launch_bounds__(BT_WARPS * 32)
+backtrace_kernel(const short* __restrict__ src, const int* __restrict__ boundary,
+                 int* __restrict__ rev, int batch, int n, int steps) {
+  __shared__ __align__(16) short ring_all[BT_WARPS][BT_SLOTS * BT_K * BT_ROW];
+  __shared__ int rel_all[BT_WARPS][BT_SLOTS * BT_K];
+  __shared__ int hub_all[BT_WARPS][BT_SLOTS * BT_K + 2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * BT_WARPS + warp;
+  if (b >= batch) return;  // no CTA-wide barrier below
+  short* ring = ring_all[warp];
+  int* rel = rel_all[warp];
+  int* hub = hub_all[warp];
+
+  BtGeom g;
+  g.src = src;
+  g.mis = (int)(((unsigned long long)src >> 1) & 7);
+  g.lo_al = bt_align_down(7, g.mis);
+  g.hi_al = bt_align_down((long long)steps * batch * n, g.mis);
+  g.banded = g.hi_al - BT_W >= g.lo_al;
+  g.batch = batch;
+  g.n = n;
+  g.steps = steps;
+  g.b = b;
+
+  const int ntiles = (steps + BT_K - 1) / BT_K;
+  int s = boundary[b];
+  int dq = 0;                        // the drift, dq / 2^16 a step
+  int ref_r = steps - 1, ref_s = s;  // where the stretch began
+  if (lane == 0) hub[BT_LAST] = -2;  // no miss yet
+  for (int x = 0; x < BT_AHEAD; ++x) {
+    const int top = steps - 1 - x * BT_K;
+    if (x < ntiles) bt_issue(g, ring, rel, hub, top, max(top - BT_K + 1, 0), ref_r, s, dq, lane);
+    bt_commit();
+  }
+  for (int j = 0; j < ntiles; ++j) {
+    const int r0 = steps - 1 - j * BT_K;
+    bt_learn(r0, s, ref_r, ref_s, dq);
+    ref_r = r0;
+    ref_s = s;
+    __syncwarp();  // every lane is past its reads of the slot refilled here
+    if (j + BT_AHEAD < ntiles) {
+      const int top = r0 - BT_AHEAD * BT_K;
+      bt_issue(g, ring, rel, hub, top, max(top - BT_K + 1, 0), r0, s, dq, lane);
+    }
+    bt_commit();
+    bt_wait<BT_AHEAD>();
+    __syncwarp();
+    const int last = min(j + BT_AHEAD, ntiles - 1);
+    const int end = max(steps - 1 - last * BT_K - BT_K + 1, 0);  // the last row in flight
+    const int slot = (j % BT_SLOTS) * BT_K;
+    const int kmax = min(BT_K, r0 + 1);
+    const short* tile = ring + slot * BT_ROW;
+    // the tile's band starts in registers, off the walk's chain; a miss
+    // places them again
+    int band_lo[BT_K], hub_lo[BT_K];
+#pragma unroll
+    for (int k = 0; k < BT_K; ++k) {
+      band_lo[k] = rel[slot + k];
+      hub_lo[k] = hub[slot + k];
+    }
+    int held = 0;  // lane k keeps the state of row r0 - k
+#pragma unroll
+    for (int k = 0; k < BT_K; ++k) {
+      if (k >= kmax) break;
+      const int r = r0 - k;
+      const int off = s - band_lo[k], off_hub = s - hub_lo[k];
+      const bool in_band = (unsigned)off < (unsigned)BT_W;
+      int s_new;
+      if (in_band || (unsigned)off_hub < 8u) {
+        s_new = tile[k * BT_ROW + (in_band ? off : BT_W + off_hub)];
+      } else {
+        const int2 m = bt_miss(g, ring, rel, hub, r0, r, s, end, ref_r, ref_s, dq, lane);
+        s_new = m.x;
+        dq = m.y;
+#pragma unroll
+        for (int q = 0; q < BT_K; ++q) {
+          band_lo[q] = rel[slot + q];
+          hub_lo[q] = hub[slot + q];
+        }
+      }
+      if (abs(s_new - s) > SVT_BT_JUMP) {
+        ref_r = r - 1;
+        ref_s = s_new;
+      }
+      if (lane == k) held = s_new;
+      s = s_new;
+    }
+    if (lane < kmax) rev[(size_t)(r0 - lane) * batch + b] = held;
   }
 }
 
@@ -410,8 +636,7 @@ int svt_path_occupancy(int which, int n, int* regs, int* ctas_per_sm) {
 
 int svt_backtrace(const short* src, const int* boundary, int* rev, int batch, int n, int steps,
                   void* stream) {
-  const int threads = 64;
-  backtrace_kernel<<<(batch + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+  backtrace_kernel<<<(batch + BT_WARPS - 1) / BT_WARPS, BT_WARPS * 32, 0, (cudaStream_t)stream>>>(
       src, boundary, rev, batch, n, steps);
   return (int)cudaGetLastError();
 }

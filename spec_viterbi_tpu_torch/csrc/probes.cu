@@ -5,7 +5,9 @@
 //   svt_probe_pass      replaces scripts/exp_roofline.py::_micro_pallas (the
 //                       micro_* bodies, stage 1 and 3b) and
 //                       scripts/exp_fs_laneblock2.py::empty_run: P passes of
-//                       one primitive class per step over a lane's carry.
+//                       one primitive class per step over a lane's carry;
+//                       and the chase classes, the dependent pointer walk
+//                       of svt_backtrace, P hops a step.
 //   svt_probe_emsel     replaces scripts/exp_mxu_precision.py::
 //                       micro_mxu_prec: P emission selects per step, by a
 //                       direct read or by mma.sync against a one-hot.
@@ -36,7 +38,8 @@
 #define TWOSYM_RANK1 5      // rank-1 applies of the composed two-symbol step
 
 // Pass classes; ops/probes.py mirrors the numbering.
-enum { PC_EMPTY = 0, PC_STREAM, PC_NEIGHBOUR, PC_COLRED, PC_BCAST, PC_EMISSION, PC_TWOSYM };
+enum { PC_EMPTY = 0, PC_STREAM, PC_NEIGHBOUR, PC_COLRED, PC_BCAST, PC_EMISSION, PC_TWOSYM, PC_CHASE,
+       PC_CHASE_HBM };
 
 // The bcast sources (37 k) mod n, k < PROBE_COLS, passed by value so the
 // kernel reads them from the constant bank, as the production kernels read
@@ -91,18 +94,31 @@ __device__ __forceinline__ void pass_step(const float* cur, float* nxt, const fl
   }
 }
 
+// chase and chase_hbm (LANES = 1): the chain of svt_backtrace alone. Warp
+// 0 walks p dependent hops a step from state b mod n, through an [n]
+// int16 table copied into shared memory (chase) or through rows (t p + k)
+// mod e of an [e][batch][n] int16 table in device memory (chase_hbm: 4 GB
+// and more, so each hop misses L2 and the TLB, as the old backtrace's
+// loads did); the carry passes through and row 0 of the output holds the
+// final state.
 template <int CLS, int LANES>
 __global__ void __launch_bounds__(SVT_THREADS)
 probe_pass_kernel(const float* __restrict__ v0, const float* __restrict__ cols,
                   const float* __restrict__ bufs, const float* __restrict__ tab,
                   const int* __restrict__ obs, const BcastSrc bsrc, float* __restrict__ out, int n,
                   int batch, int steps, int p, int e) {
-  extern __shared__ float carry[];  // [2][LANES][n]
+  constexpr bool kChase = CLS == PC_CHASE || CLS == PC_CHASE_HBM;
+  extern __shared__ float carry[];  // [2][LANES][n]; chase: then the [n] int16 table
   __shared__ float red[SVT_WARPS][PROBE_COLRED_CAP];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b0 = blockIdx.x * LANES;
+  const short* ptab = reinterpret_cast<const short*>(tab);
+  short* chase_tab = reinterpret_cast<short*>(carry + 2 * LANES * n);
+  int state = b0 % n;
   for (int l = 0; l < LANES; ++l)
     for (int i = tid; i < n; i += SVT_THREADS) carry[l * n + i] = v0[(size_t)i * batch + b0 + l];
+  if (CLS == PC_CHASE)
+    for (int i = tid; i < n; i += SVT_THREADS) chase_tab[i] = ptab[i];
   __syncthreads();
 
   float* cur = carry;
@@ -176,23 +192,36 @@ probe_pass_kernel(const float* __restrict__ v0, const float* __restrict__ cols,
         for (int k = 0; k < TWOSYM_RANK1; ++k) acc = fminf(acc, mid[(2 + 2 * k) * tstride + i] + m[k]);
         nxt[i] = end[i] + acc;
       }
+    } else if (kChase) {
+      if (warp == 0) {
+        for (int k = 0; k < p; ++k) {
+          if (CLS == PC_CHASE)
+            state = chase_tab[state];
+          else
+            state = ptab[((size_t)((t * p + k) % e) * batch + b0) * n + state];
+        }
+      }
     } else {
       pass_step<CLS, LANES>(cur, nxt, cols, bufs, tab, obs, bsrc, n, batch, b0, t, p);
     }
     __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    if (!kChase) {
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
   }
   for (int l = 0; l < LANES; ++l)
     for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b0 + l] = cur[l * n + i];
+  if (kChase && tid == 0) out[b0] = (float)state;
 }
 
 template <int CLS, int LANES>
 static int launch_pass(const float* v0, const float* cols, const float* bufs, const float* tab,
                        const int* obs, float* out, int n, int batch, int steps, int p, int e,
                        void* stream) {
-  const size_t smem = 2 * (size_t)LANES * n * sizeof(float);
+  size_t smem = 2 * (size_t)LANES * n * sizeof(float);
+  if (CLS == PC_CHASE) smem += ((size_t)n * sizeof(short) + 3) / 4 * 4;
   int rc = set_smem((const void*)probe_pass_kernel<CLS, LANES>, smem);
   if (rc) return rc;
   BcastSrc bsrc;
@@ -380,6 +409,8 @@ int svt_probe_pass(int cls, int lanes, const float* v0, const float* cols, const
     SVT_PASS(PC_BCAST);
     SVT_PASS(PC_EMISSION);
     SVT_PASS(PC_TWOSYM);
+    SVT_PASS(PC_CHASE);
+    SVT_PASS(PC_CHASE_HBM);
     default:
       return (int)cudaErrorInvalidValue;
   }

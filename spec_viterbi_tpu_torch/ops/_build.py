@@ -25,10 +25,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".build"
 
+# svt_backtrace's staged walk (csrc/path.cu). The kernel reads these from
+# the -D flags below and probes/emulation.py from here, so the two share
+# one value of each.
+BT_TILE = 32  # steps a tile (a warp's lanes hold one state each)
+BT_BAND = 64  # pointers staged a step: a multiple of 8 (16-byte copies)
+BT_AHEAD = 1  # tiles in flight ahead of the walk
+BT_JUMP = 16  # a step that moves the state further starts a new stretch
+BT_MIN_ROWS = 4  # steps a stretch needs before its drift is taken
+
 # no --use_fast_math: flush-to-zero and approximate adds break bit-equality
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    f"-DSVT_BT_TILE={BT_TILE}", f"-DSVT_BT_BAND={BT_BAND}", f"-DSVT_BT_AHEAD={BT_AHEAD}",
+    f"-DSVT_BT_JUMP={BT_JUMP}", f"-DSVT_BT_MIN_ROWS={BT_MIN_ROWS}",
 )
 
 # caps of the descriptors, as #defined in csrc/common.cuh
@@ -52,6 +63,8 @@ SP_USE_ACC = 1
 SP_SHARED = 2
 ST_SHARED = 1
 ST_BULK = 2
+ST_SPECIAL = 4
+ST_USE_ACC = 8
 
 
 class ScoresDesc(ctypes.Structure):
@@ -181,6 +194,8 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_variant.restype = i32
     lib.svt_scores_occupancy.argtypes = [i32, i32, vp, vp]
     lib.svt_scores_occupancy.restype = i32
+    lib.svt_scores_fs_shape.argtypes = [i32, i32, vp, vp, vp]
+    lib.svt_scores_fs_shape.restype = i32
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):
         if lib.svt_desc_size(which) != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout differs from csrc/")

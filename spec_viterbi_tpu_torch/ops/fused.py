@@ -16,7 +16,8 @@ on chip (``csrc/scores.cu``, ``csrc/path.cu``):
 - :func:`scores_fs` (kernel ``svt_scores_fs``) replaces the frame-shifted
   Pallas kernel ``_make_fs_kernel``: unmasked, for the single-diagonal
   operators whose dense rows and columns collapse into the uniform plans
-  (``_fs_ok``), i.e. uniform-length batches of corpus-shaped models.
+  (``_fs_ok``), i.e. uniform-length batches of corpus-shaped models; one
+  barrier a step, the emissions fetched a step ahead.
 - :func:`path` replaces ``_make_path_kernel``: the masked or unmasked
   recurrence with ``(value, source)`` pairs under the oracle's tie rule,
   writing int16 backpointers ``[T-1, B, n]``. Two arms as
@@ -26,7 +27,9 @@ on chip (``csrc/scores.cu``, ``csrc/path.cu``):
 :class:`FusedStructuredDecoder` picks each arm once, when it is built,
 from the plans.
 - :func:`backtrace` (kernel ``svt_backtrace``) replaces
-  ``_backtrace_kernel``: the reverse walk from a boundary state.
+  ``_backtrace_kernel``: the reverse walk from a boundary state, staged
+  through shared memory ahead of the walk
+  (``probes/emulation.py::backtrace_staged`` repeats its schedule).
 
 All read the emission row ``em[o_t]`` directly and compute in exact f32
 with real ``+inf``, so scores are bit-equal to the numpy oracle and paths
@@ -330,7 +333,7 @@ class FsTables:
     n_real: int
     d: int
     dv: torch.Tensor  # [n] f32, the single diagonal
-    flags: torch.Tensor  # [n] uint8: ST_SHARED | ST_BULK
+    flags: torch.Tensor  # [n] uint8: ST_SHARED | ST_BULK | ST_SPECIAL | ST_USE_ACC
     uni_src: torch.Tensor  # [U] int64
     uni_val: torch.Tensor  # [U] f32
     sp_row: torch.Tensor  # [S] int64
@@ -379,6 +382,8 @@ class FsTables:
         bulk = shared.copy()
         bulk[special] = False
         flags[bulk] |= _build.ST_BULK
+        flags[special] |= _build.ST_SPECIAL
+        flags[[r for r in special if rows[r]["use_acc"]]] |= _build.ST_USE_ACC
 
         sp_use_acc = [rows[r]["use_acc"] for r in special]
         sp_shared = [bool(shared[r]) for r in special]
@@ -501,6 +506,21 @@ def scores_fs(
         _build.check(lib, rc, "svt_scores_fs")
         launches["scores_fs"] += 1
     return out
+
+
+def scores_fs_shape(n: int, batch: int, device: torch.device) -> dict:
+    """The shape ``svt_scores_fs`` launches for ``batch`` lanes of ``n``
+    states on ``device``, as the card reports it: threads a lane, lanes a
+    CTA, registers a thread and resident CTAs an SM."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    lib = _build.library()
+    threads, regs, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = lib.svt_scores_fs_shape(n, batch, ctypes.byref(threads), ctypes.byref(regs), ctypes.byref(ctas))
+    _build.check(lib, rc, "svt_scores_fs_shape")
+    return {"threads_a_lane": threads.value, "lanes_a_cta": 1, "registers": regs.value,
+            "ctas_per_sm": ctas.value}
 
 
 # ---- the path kernels: svt_path and svt_backtrace -------------------------

@@ -39,7 +39,9 @@ from spec_viterbi_tpu_torch.ops.structured import (
 )
 
 # pass classes of svt_probe_pass, numbered as in csrc/probes.cu
-PASS_CLASSES = ("empty", "stream", "neighbour", "colred", "bcast", "emission", "twosym")
+PASS_CLASSES = ("empty", "stream", "neighbour", "colred", "bcast", "emission", "twosym", "chase",
+                "chase_hbm")
+CHASE_HOPS = 16  # hops a step at most
 # emission-select schemes of svt_probe_emsel, numbered as in csrc/probes.cu
 EMSEL_SCHEMES = ("gather", "tf32", "bf16", "split2", "split3")
 # flags of svt_scores_variant, one at a time (0: the production kernel)
@@ -115,9 +117,27 @@ def probe_pass_plain(
     - bcast: ``cols[k] + v[(37k) mod n]``;
     - emission: ``tab[(obs[t] + k) mod 20]`` (``tab`` [E, n]);
     - twosym: the composed step of ``micro_twosym`` on ``tab``
-      [12, E, n].
+      [12, E, n];
+    - chase, chase_hbm: no pass; lane ``b`` walks ``p`` dependent hops a
+      step from state ``b mod n`` through ``tab``, an [n] int16 table
+      (chase) or an [R, B, n] one whose row ``(t p + k) mod R`` hop ``k`` of
+      step ``t`` reads (chase_hbm); the carry passes through and row 0
+      holds each lane's final state.
 
     ``cols`` is [16, n]: the script's [N, 16] transposed."""
+    if cls in ("chase", "chase_hbm"):
+        n, b = v0.shape
+        state = torch.arange(b, device=v0.device) % n
+        lanes = torch.arange(b, device=v0.device)
+        for t in range(steps):
+            for k in range(p):
+                if cls == "chase":
+                    state = tab[state].long()
+                else:
+                    state = tab[(t * p + k) % tab.shape[0], lanes, state].long()
+        out = v0.clone()
+        out[0] = state.to(v0.dtype)
+        return out
     v = v0
     if cls == "twosym":
         def table(j, s):
@@ -175,7 +195,8 @@ def probe_pass(
     if cls not in PASS_CLASSES:
         raise ValueError(f"pass class {cls!r} not in {PASS_CLASSES}")
     p_range = {"empty": (0, 0), "colred": (1, COLRED_CAP), "emission": (1, PROBE_COLS),
-               "twosym": (0, 0)}.get(cls, (1, PROBE_COLS))
+               "twosym": (0, 0), "chase": (1, CHASE_HOPS),
+               "chase_hbm": (1, CHASE_HOPS)}.get(cls, (1, PROBE_COLS))
     if not p_range[0] <= p <= p_range[1]:
         raise ValueError(f"{cls} takes {p_range[0]}..{p_range[1]} passes, got {p}")
     if lanes_per_cta not in (1, 2, 4) or (lanes_per_cta > 1 and cls != "empty"):
@@ -183,6 +204,8 @@ def probe_pass(
     if cls == "twosym" and steps % 2:
         raise ValueError("twosym consumes two symbols a step: steps must be even")
     needs_obs = cls in ("emission", "twosym")
+    if cls in ("chase", "chase_hbm") and tab is None:
+        raise ValueError(f"{cls} walks tab")
     if needs_obs and obs is None:
         raise ValueError(f"{cls} reads symbols: pass obs")
     if v0.device.type == "cpu":
@@ -191,7 +214,7 @@ def probe_pass(
     n, b = v0.shape
     if b % lanes_per_cta:
         raise ValueError(f"{b} lanes are not a multiple of {lanes_per_cta} lanes per CTA")
-    if 2 * lanes_per_cta * n * 4 + 1024 > _build.MAX_SMEM:
+    if 2 * lanes_per_cta * n * 4 + (2 * n if cls == "chase" else 0) + 1024 > _build.MAX_SMEM:
         raise ValueError(f"{n} states x {lanes_per_cta} lanes do not fit one block's shared memory")
     specs = [(v0, torch.float32, (n, b), "v0")]
     if obs is not None:
@@ -213,6 +236,11 @@ def probe_pass(
     if cls == "twosym":
         e = tab.shape[1]
         specs.append((tab, torch.float32, (TWOSYM_TABLES, max(e, SYMBOLS), n), "tab"))
+    if cls == "chase":
+        specs.append((tab, torch.int16, (n,), "tab"))
+    if cls == "chase_hbm":
+        e = tab.shape[0]
+        specs.append((tab, torch.int16, (max(e, 1), b, n), "tab"))
     _check(dev, specs)
     out = torch.empty_like(v0)
     if b == 0:
@@ -463,6 +491,7 @@ def scores_variant(
 # the kernels scores_occupancy reports: (entry point, which)
 OCCUPANCY_KERNELS = {
     "fs": ("svt_scores_occupancy", 0),
+    "fs_few_lanes": ("svt_scores_occupancy", 3),
     "masked": ("svt_scores_occupancy", 1),
     "masked_planned": ("svt_scores_occupancy", 2),
     "path": ("svt_path_occupancy", 0),
@@ -472,7 +501,9 @@ OCCUPANCY_KERNELS = {
 
 def scores_occupancy(kernel: str, n: int, device: torch.device) -> tuple[int, int]:
     """(registers a thread, resident CTAs an SM) for ``n`` states, as the
-    card reports them, of ``svt_scores_fs`` (``"fs"``), the generic and
+    card reports them, of ``svt_scores_fs`` (``"fs"``: the shape of many
+    lanes; ``"fs_few_lanes"``: the shape one wave of which holds few
+    lanes), the generic and
     planned arms of ``svt_scores_masked`` (``"masked"`` at two dense
     columns, ``"masked_planned"``) or of ``svt_path`` (``"path"``,
     ``"path_planned"``)."""

@@ -12,10 +12,12 @@ that reaches ``pl.pallas_call``), built on the probe kernels of
   emission select per scheme;
 - :mod:`.laneblock` (S3, ``scripts/exp_fs_laneblock2.py``): the empty
   floor at 1, 2 and 4 lanes a CTA, the FS kernel at 512 and 1,024 lanes,
-  the chain floor;
+  the chain floors (the empty step; the backtrace's pointer hop, ``chase``);
 - :mod:`.kernel_variants` (S4, ``scripts/exp_kernel_variants.py``): the
   ablated masked kernel;
-- :mod:`.bounds`: the least time the card could take for a kernel's work.
+- :mod:`.bounds`: the least time the card could take for a kernel's work;
+- :mod:`.emulation`: the redesigned kernels' step orders in torch (the
+  staged backtrace's misses, the one-barrier FS step).
 
 ``python3 -m spec_viterbi_tpu_torch.probes [--stage ...] [--out DIR]``
 runs them on the card, one JSON line per measurement. They measure; no

@@ -127,8 +127,12 @@ def probe_pass(cls: str, n: int, lanes: int, steps: int, p: int, e: int = 32) ->
     """``svt_probe_pass``: ``v + 0.5`` and, per pass, a candidate add and
     a min (emission: a min of the row read); colred adds the final min;
     twosym, per composed step, 22 (the diagonal add, five rank-1 applies of
-    four each, the emission add)."""
+    four each, the emission add); chase reads one pointer a hop and adds
+    nothing."""
     nbytes = _carry_bytes(n, lanes)
+    if cls in ("chase", "chase_hbm"):
+        # a pointer read a hop, and the shared table once
+        return Work(0.0, nbytes + steps * p * lanes * I16 + (n * I16 if cls == "chase" else 0))
     if cls == "twosym":
         return Work(22 * n * lanes * (steps // 2),
                     nbytes + steps * lanes * I32 + 12 * e * n * F32)

@@ -18,9 +18,11 @@ and whether more lanes per CTA or more CTAs help. So this times:
   these kernels and of both arms of ``svt_path``, as the card reports
   them, so the lanes one wave holds.
 
-It also gives the chain floor (:func:`empty_floor`): the empty step's
-time at any carry length and CTA count, which the bounds of the
-production kernels leave out.
+It also gives the chain floors, which the bounds of the production
+kernels leave out: the empty step's time at any carry length and CTA count
+(:func:`empty_floor`), and the hop of a dependent pointer walk in shared
+memory and through a 4 GB table (:func:`chase_floor`, ``svt_backtrace``'s
+chain).
 """
 
 from __future__ import annotations
@@ -36,10 +38,12 @@ from spec_viterbi_tpu_torch.probes.common import (
     CorpusBatch,
     PassInputs,
     Record,
+    fit_slope,
     median_ms,
 )
 
 EMPTY_STEPS = 3496
+CHASE_HOPS = {"chase": (1, 2, 4, 8), "chase_hbm": (1, 2)}  # hops a step timed
 LANES_PER_CTA = (1, 2, 4)
 FS_LANES = (128, 256, 512, 1024)
 
@@ -62,6 +66,44 @@ def empty_floor(rec: Record, configs, steps: int, seed: int, device) -> dict:
         us = empty_us_per_step(n, ctas, EMPTY_STEPS, seed, device, symbols=False)
         out[name] = rec.emit(f"chain_floor_{name}", n=n, ctas=ctas, us_per_step=us,
                              steps=steps, floor_ms=us * steps / 1e3)
+    return out
+
+
+def chase_floor(rec: Record, lanes: int, n: int, steps: int, seed: int, device) -> dict:
+    """The hop of ``svt_backtrace``'s chain: the slope over the hops a step
+    of the ``chase`` probe's time on ``lanes`` lanes for ``steps`` steps,
+    through one random ``n``-cycle held in shared memory (``chase``) and
+    through random pointers of a [steps, lanes, n] int16 table in device
+    memory (``chase_hbm``, 4.36 GB at 256 x 3,499 x 2,432). Each floor is
+    ``steps`` hops: the staged walk's (shared) and the one-load-a-step
+    walk's (HBM). Beside them, ``svt_backtrace`` itself at both ends of
+    what its staging can meet (``backtrace_random``, ``backtrace_identity``):
+    the random table (every step a miss) and identity pointers (none),
+    each held to ``backtrace_plain``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    order = torch.randperm(n, generator=g, device=device)
+    cycle = torch.empty(n, dtype=torch.int16, device=device)
+    cycle[order] = order.roll(-1).to(torch.int16)
+    big = torch.randint(0, n, (steps, lanes, n), generator=g, device=device, dtype=torch.int16)
+    v0 = torch.zeros((n, lanes), device=device)
+    out = {}
+    for cls, tab in (("chase", cycle), ("chase_hbm", big)):
+        hops = CHASE_HOPS[cls]
+        ms = [median_ms(lambda: probes.probe_pass(cls, v0, steps, tab=tab, p=p)) for p in hops]
+        us = fit_slope(hops, ms) * 1e3 / steps
+        out[cls] = rec.emit(f"chain_floor_chase_{'shared' if cls == 'chase' else 'hbm'}", n=n, lanes=lanes,
+                            steps=steps, hops=list(hops), ms=ms, us_per_hop=us,
+                            floor_ms=us * steps / 1e3, table_bytes=tab.numel() * 2)
+    boundary = torch.randint(0, n, (lanes,), generator=g, device=device, dtype=torch.int32)
+    for name in ("random", "identity"):
+        if name == "identity":
+            del big
+            big = torch.arange(n, device=device, dtype=torch.int16).expand(steps, lanes, n).contiguous()
+        same = bool(torch.equal(fused.backtrace(big, boundary), fused.backtrace_plain(big, boundary)))
+        ms = median_ms(lambda: fused.backtrace(big, boundary))
+        out[f"backtrace_{name}"] = rec.emit(f"backtrace_{name}", n=n, lanes=lanes, steps=steps, ms=ms,
+                                            us_per_step=ms * 1e3 / steps, bit_equal=same)
+    del big
     return out
 
 

@@ -848,3 +848,219 @@ def test_scores_occupancy_on_card(cuda_device):
     for kernel in probes.OCCUPANCY_KERNELS:
         regs, ctas = probes.scores_occupancy(kernel, 2432, cuda_device)
         assert 0 < regs <= 255 and 1 <= ctas <= 8
+
+
+# ---- the staged backtrace and the one-barrier FS kernel (csrc/path.cu,
+# csrc/scores.cu), at their edges -------------------------------------------
+
+
+def far_walk(steps, lanes, n):
+    """Pointers (identity off the walk) that take every lane from state 100
+    up 33 states a step, each 32-step tile in the other of two regions,
+    [100, 1,156) and [1,250, 2,306): each step lands past every band the
+    staged walk has placed (a band reaches 31 states up and 39 down; a
+    tile's bands are placed around a state of the other region), so it
+    misses every step after its first."""
+    def state(k):
+        return (100 if k // 32 % 2 == 0 else 1250) + 33 * (k % 32)
+
+    assert state(steps) < n and (steps <= 32 or n >= 2306)
+    src = np.broadcast_to(np.arange(n), (steps, lanes, n)).copy()
+    for k in range(steps):
+        src[steps - 1 - k, :, state(k)] = state(k + 1)
+    return src, np.full(lanes, 100)
+
+
+def _backtrace_cases():
+    rng = np.random.default_rng(11)
+    cases = []
+    for steps, lanes, n in [(0, 3, 40), (1, 1, 2), (1, 3, 301), (37, 3, 2), (200, 512, 301),
+                            (3499, 3, 2432)]:
+        cases.append(pytest.param(rng.integers(0, n, size=(steps, lanes, n)), rng.integers(0, n, size=lanes),
+                                  None, id=f"random-{steps}x{lanes}x{n}"))
+    cases.append(pytest.param(*far_walk(3499, 3, 2432), 3498, id="miss-every-step"))
+    ident = np.broadcast_to(np.arange(2432), (3499, 3, 2432)).copy()
+    cases.append(pytest.param(ident, np.array([0, 1216, 2431]), 0, id="identity-never-misses"))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,boundary,misses", _backtrace_cases())
+def test_staged_backtrace_equals_plain_on_card(cuda_device, src, boundary, misses):
+    """svt_backtrace against backtrace_plain and the staged walk's
+    emulation on the same card tensors: 0, 1 and 3,499 steps, 1, 3 and 512
+    lanes, n of 2, 301 (no multiple of 8) and 2,432; pointers that miss
+    every step and pointers that never do."""
+    from spec_viterbi_tpu_torch.probes import emulation
+
+    s = torch.as_tensor(src.astype(np.int16), device=cuda_device)
+    b = torch.as_tensor(boundary.astype(np.int32), device=cuda_device)
+    fused.reset_launches()
+    rev = fused.backtrace(s, b)
+    want = fused.backtrace_plain(s, b)
+    torch.cuda.synchronize()
+    assert torch.equal(rev, want)
+    assert fused.launches["backtrace"] == (1 if s.shape[0] else 0)
+    if s.shape[0]:
+        emu, got_misses = emulation.backtrace_staged(s, b)
+        assert torch.equal(emu, rev)
+        if misses is not None:
+            assert got_misses.tolist() == [misses] * s.shape[1]
+
+
+@pytest.mark.cuda
+def test_staged_backtrace_on_tie_heavy_and_tp_pointers_on_card(cuda_device):
+    """The walk through the generic path arm's pointers of the tie-heavy
+    model at 512 lanes, and through the TP decode's global pointers of a
+    banded model (offsets (1, 3), the local group): equal to the plain
+    version."""
+    hmm = generate_tie_heavy_hmm(300, seed=2)
+    fd = _decoder(hmm, cuda_device)
+    rng = np.random.default_rng(2)
+    st, ln, _ = fd.prepare(_seqs(rng, rng.integers(1, 90, size=512), hmm.emit_num - 1))
+    v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+    out, src = fused.path(fd._masked, fd.em, v0, st[1:], ln)
+    last = torch.argmin(out, dim=0).to(torch.int32)
+    rev = fused.backtrace(src, last)
+    torch.cuda.synchronize()
+    assert torch.equal(rev, fused.backtrace_plain(src, last))
+    tp = _tp_decoder(generate_banded_hmm(512, (1, 3), 4, seed=5), 4, 16, cuda_device)
+    st, ln = tp._stage(_seqs(rng, [70] * 37, 4))
+    carry, bp = tp._run_local(st, ln, path=True)
+    last = torch.argmin(carry, dim=0).to(torch.int32)
+    rev = fused.backtrace(bp, last)
+    torch.cuda.synchronize()
+    assert torch.equal(rev, fused.backtrace_plain(bp, last))
+
+
+def _tiny_fs_tables(device):
+    """FS tables of a two-state operator: the +1 diagonal, state 0 a
+    uniform dense row, state 1 a dense column's target."""
+    import types
+
+    sop = types.SimpleNamespace(n=2, states_num=2, diag_offsets=(1,),
+                                diag_vals=np.array([[np.inf, 1.5]], np.float32))
+    return fused.FsTables.build(sop, [(1, 0.5, [])], (((0, 2.0),), (), ()),
+                                np.zeros((2, 1), np.float32), torch.device(device))
+
+
+def _fs_cases():
+    return [
+        pytest.param("tiny", 1, 5, id="n2-1lane"),
+        pytest.param("tiny", 3, 0, id="n2-3lanes-0steps"),
+        pytest.param(126, 3, 1, id="n128-3lanes-1step"),
+        pytest.param(126, 265, 40, id="n128-265lanes"),
+        pytest.param(380, 37, 40, id="n384-37lanes"),
+        pytest.param(2405, 1, 3499, id="n2432-1lane-3499steps"),
+        pytest.param(2405, 512, 64, id="n2432-512lanes"),
+        # past the register rows: the arm that reads each row's bits each step
+        pytest.param(4200, 265, 20, id="n4224-265lanes"),
+        pytest.param(8300, 3, 20, id="n8320-3lanes"),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("states,lanes,steps", _fs_cases())
+def test_one_barrier_fs_kernel_equals_plain_on_card(cuda_device, states, lanes, steps):
+    """svt_scores_fs against scores_fs_plain on the same card tensors: n of
+    2, 128, 384 (no multiple of the 256-thread shape's CTA), 2,432, and
+    4,224 and 8,320 (more rows a thread than the registers hold); 1, 3,
+    37, 265 and 512 lanes (both shapes); 0, 1 and 3,499 steps."""
+    rng = np.random.default_rng(lanes + steps)
+    if states == "tiny":
+        t = _tiny_fs_tables(cuda_device)
+        em = torch.as_tensor(rng.uniform(0.0, 3.0, size=(3, 2)).astype(np.float32), device=cuda_device)
+        v0 = torch.as_tensor(rng.uniform(0.0, 5.0, size=(2, lanes)).astype(np.float32), device=cuda_device)
+        obs = torch.as_tensor(rng.integers(0, 3, size=(steps, lanes)).astype(np.int32), device=cuda_device)
+        em_t = em.T.contiguous()
+    else:
+        fd = _decoder(generate_profile_hmm(states, seed=lanes), cuda_device)
+        assert fd._fs_ok
+        t, em, em_t = fd._fs, fd.em, fd.em_t
+        st, _, _ = fd.prepare(_seqs(rng, [steps + 1] * lanes, 20))
+        v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+        obs = st[1:]
+    fused.reset_launches()
+    got = fused.scores_fs(t, em, v0, obs)
+    want = fused.scores_fs_plain(t, em_t, v0, obs)
+    torch.cuda.synchronize()
+    assert fused.launches["scores_fs"] == 1
+    assert torch.equal(got, want)
+
+
+def capped_fs_tables(n_uni, n_special, seed, device="cpu"):
+    """FS tables at the kernel's caps on a 600-state profile operator:
+    ``n_uni`` uniform rows (the first of them also a special row, fixed by
+    a lower scalar candidate) and ``n_special`` special rows (the two
+    column targets, fixes and recomputed rows, some starting from the bulk
+    candidate and some not)."""
+    hmm = generate_profile_hmm(598, seed=seed)
+    sop = StructuredOperator.from_hmm(hmm)
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(np.arange(1, sop.states_num), size=n_special + n_uni, replace=False).tolist()
+    targets, fixed, recomputed = rows[:2], rows[2 : 2 + n_special // 2], rows[2 + n_special // 2 : n_special]
+    uni_src = [fixed[0]] + rows[n_special : n_special + n_uni - 1]
+    uni = tuple((int(s), float(rng.uniform(2.0, 6.0))) for s in uni_src)
+    fixes = tuple((int(r), float(rng.uniform(0.5, 2.0)), int(rng.choice(uni_src))) for r in fixed)
+    recompute = tuple(
+        (int(r), ((float(rng.uniform(1.0, 3.0)), int(r) - 1),), ((float(rng.uniform(1.0, 3.0)), int(uni_src[1])),))
+        for r in recomputed
+    )
+    col_plan = [(int(targets[0]), 1.5, [(int(rows[-1]), 0.75)]), (int(targets[1]), 2.5, [])]
+    mask = np.full((sop.n, 1), np.inf, np.float32)
+    mask[rng.choice(np.arange(sop.states_num), size=sop.states_num // 2, replace=False), 0] = 0.0
+    t = fused.FsTables.build(sop, col_plan, (uni, fixes, recompute), mask, torch.device(device))
+    assert t.desc.n_uni == n_uni and t.desc.n_special == n_special
+    return hmm, sop, t
+
+
+@pytest.mark.cuda
+def test_one_barrier_fs_kernel_at_the_caps_on_card(cuda_device):
+    """A row both a uniform-row source and special, with the uniform and
+    special rows at the kernel's caps (MAX_UNI, MAX_SPECIAL): the kernel
+    equals scores_fs_plain on both shapes."""
+    hmm, sop, t = capped_fs_tables(fused._build.MAX_UNI, fused._build.MAX_SPECIAL, seed=3,
+                                   device=cuda_device)
+    rng = np.random.default_rng(3)
+    em = torch.as_tensor(hmm.emission_matrix(pad_to=sop.n), device=cuda_device)
+    for lanes in (3, 512):
+        v0 = torch.as_tensor(rng.uniform(0.0, 30.0, size=(sop.n, lanes)).astype(np.float32), device=cuda_device)
+        v0[sop.states_num :] = float("inf")
+        obs = torch.as_tensor(rng.integers(0, hmm.emit_num, size=(50, lanes)).astype(np.int32), device=cuda_device)
+        got = fused.scores_fs(t, em, v0, obs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused.scores_fs_plain(t, em.T.contiguous(), v0, obs))
+
+
+@pytest.mark.cuda
+def test_fs_shape_follows_the_lanes_on_card(cuda_device):
+    """The few-lanes shape while one wave of it holds the lanes, the
+    many-lanes shape past that; each with at least one CTA an SM."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    few = fused.scores_fs_shape(2432, 1, cuda_device)
+    wave = few["ctas_per_sm"] * sms
+    many = fused.scores_fs_shape(2432, wave + 1, cuda_device)
+    assert fused.scores_fs_shape(2432, wave, cuda_device) == few
+    assert few["threads_a_lane"] != many["threads_a_lane"]
+    assert few["ctas_per_sm"] >= 1 and many["ctas_per_sm"] * sms >= 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,p", [("chase", 1), ("chase", 4), ("chase_hbm", 1), ("chase_hbm", 2)])
+def test_chase_probe_equals_plain_on_card(cuda_device, cls, p):
+    """svt_probe_pass's chase classes against their plain version."""
+    from spec_viterbi_tpu_torch.ops import probes
+
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    n, lanes, steps = 301, 24, 9
+    v0 = torch.rand((n, lanes), generator=g, device=cuda_device)
+    if cls == "chase":
+        tab = torch.randperm(n, generator=g, device=cuda_device).to(torch.int16)
+    else:
+        tab = torch.randint(0, n, (7, lanes, n), generator=g, device=cuda_device, dtype=torch.int16)
+    probes.reset_launches()
+    got = probes.probe_pass(cls, v0, steps, tab=tab, p=p)
+    want = probes.probe_pass_plain(cls, v0, steps, tab=tab, p=p)
+    torch.cuda.synchronize()
+    assert probes.launches["probe_pass"] == 1
+    assert torch.equal(got, want)
