@@ -46,7 +46,7 @@ exits non-zero:
     finalize again, every ``svt_backtrace`` launch held to
     ``backtrace_plain`` and to the staged walk's emulation
     (``probes/emulation.py``) on its own pointer tensor, and the same for
-    a TP and a DP path call (steps 13 and 16): the ``backtrace_misses``
+    a TP and a DP path call (steps 16 and 19): the ``backtrace_misses``
     line, the emulation's misses a lane of each call; then ``fs_shape``,
     the shape ``svt_scores_fs`` takes at 512, 256 and 128 lanes (threads a
     lane, lanes a CTA, registers, CTAs an SM);
@@ -56,25 +56,53 @@ exits non-zero:
     launch counts read around that run (the generic arms); both generic
     kernels against their plain versions on 512 lanes × 511 steps, and
     the decodes against the oracle on a prefix;
-13. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
+13. ``dense_main``: ``ViterbiDecoder(mode="dense", device="cuda")`` at the
+    dense baseline's shape, the first 50 lanes of the uniform set
+    (``prepare_batch``/``run_batch``), ``decode_batch`` of the first 50
+    ragged sequences, ``decode`` and ``decode_path`` of one, with the
+    ``svt_minplus`` and fused launch counts read around that run (no fused
+    kernel); dense scores bit-equal to step 5's (the FS kernel's and the
+    masked kernel's) and the dense path to lane 0 of step 8's; ``auto``
+    resolving to dense on a seeded dense-class model (1,024 states, 256
+    transitions a state), held to the oracle on 4 x 64;
+14. ``dense_kernel_vs_plain``: ``svt_minplus`` against ``minplus_plain``
+    on one full dense batch step, a 64-step prefix of ``run_batch``, the
+    J = 1 argmin arm and ragged-edge shapes (both layouts, gathered):
+    bit-equal;
+15. ``spec_main``: ``SpecializedViterbi(level=1)`` delegating to the fused
+    decoder (``svt_scores_fs``), then level 2: the slowdown warning,
+    ``spec_with`` (441 products, a 10.43 GB stack; peak device memory),
+    ``run_spec_batch`` of the 50 uniform and 50 ragged sequences and
+    ``run_spec`` of one, within ±1.0 of the dense scores (the largest
+    difference printed), 4 of the products and a 16-chunk prefix of the
+    gathered decode held to the plain version; then ``svt_minplus``'s
+    ``time`` lines (the dense ``run_batch``, the J = 1 step with and
+    without argmin, the level-2 build, the gathered level-2 decode of 50
+    x 1,749 chunks), each beside its bound and held to it (neither its
+    event time nor its device time may read below it: the J = 1 lines
+    take 8 copies of the operator in turn, so each launch reads it from
+    HBM as the bound counts it, and give the decode loop's one reused,
+    L2-resident operator beside them as ``resident_*``); the stack is
+    freed;
+16. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
     states, offsets (1, 3), 4 symbols) on a local group of 4 shards, chunk
     16: ``FusedTPDecoder.decode_batch`` and ``decode_path_batch`` on a
     uniform (512 × 3,500) and a ragged set (the lengths of step 4), with
     the launch counts read around each call (219 window launches a call,
     one backtrace a path call); scores, paths and the global pointer
     tensor bit-equal to the unsharded kernels';
-14. ``tp_kernel_vs_plain``: both window kernels against their plain
+17. ``tp_kernel_vs_plain``: both window kernels against their plain
     versions on the first 4 chunks, uniform and ragged, in the local form
     and in the rank form of every shard (one window, window-local
     pointers), and ``decode_batch_emulated(check_path_kernel=True)`` on
     128 lanes;
-15. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
+18. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
     a prefix and on a seeded tie-heavy banded model: bit-equal;
-16. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
+19. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
     bit-equal to the single-device decode;
-17. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
+20. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
     most 4), bit-equal to the local group; with one card it says so;
-18. time kernel and plain version of the window kernels (the whole TP
+21. time kernel and plain version of the window kernels (the whole TP
     decode, and kernel vs plain on the first 4 chunks, beside the
     unsharded kernels on the same model and lanes); then both window
     kernels in both launch forms through the decoder's chunk loops
@@ -83,7 +111,7 @@ exits non-zero:
     host's µs a chunk and the device's idle share; the device time of one
     launch against its steps (0 to 1,024); and an ``occupancy_*_window``
     line for each kernel;
-19. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
+22. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
     uniform set, with the probe kernels' launch counts read around that
     run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
     their drift verdict, the two-symbol step, staged emissions), S2 (the
@@ -99,7 +127,7 @@ exits non-zero:
     bit-equal to its plain version); then each
     probe kernel against its plain version on a 64-step slice, every
     class, scheme and flag, bit-equal;
-20. time kernel and plain version of the scores kernels at the uniform
+23. time kernel and plain version of the scores kernels at the uniform
     shape and the path kernels at one 256-lane call (median of 5; the
     plain path scans on fewer repeats, as their lines say), each arm of
     the masked and path kernels on its own line; both arms of the masked
@@ -115,8 +143,9 @@ probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
 its bytes over 3.35 TB/s, one count of an operator's work whichever arm
 runs it) for the work it was timed on; the planned arms' launches come
 from the corpus model's main path, the generic arms' from
-``generic_main``. The line before
-the card's line is that JSON object with one entry per kernel; the last
+``generic_main``, ``minplus``'s from ``dense_main`` and ``spec_main``. The
+line before the card's line is that JSON object with one entry per kernel;
+the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +177,13 @@ NO_OTHER_LAUNCHES = {"path": 0, "path_planned": 0, "backtrace": 0, "scores_windo
                      "path_window": 0}
 ZERO_LAUNCHES = {"scores_masked": 0, "scores_masked_planned": 0, "scores_fs": 0, **NO_OTHER_LAUNCHES}
 GENERIC_CHECK_STEPS = 511  # steps of the generic arms' kernel-vs-plain check outside the plans
+DENSE_LANES = 50  # the JAX package's dense baseline: 50 lanes x 3,500 symbols (bench.py:162-174)
+DENSE_PLAIN_STEPS = 64  # the plain version's prefix of the dense run_batch
+DENSE_TIME_REPEATS = 2  # a dense run_batch takes about a second
+AUTO_STATES, AUTO_TRANS = 1024, 256  # the seeded dense-class model on which auto resolves to dense
+SPEC_PLAIN_PRODUCTS = ((0, 0), (7, 13), (19, 20), (20, 5))  # (new symbol, earlier) of the level-2 build
+SPEC_PLAIN_CHUNKS = 16  # chunks of the gathered decode held to the plain version
+J1_COLD_COPIES = 8  # operators the J = 1 time lines take in turn: 190 MB, well past the 50 MB L2
 TP_PATH_LANES = 256  # the pointer comparison and the path timing
 TP_PLAIN_CHUNKS = 4  # chunks of the kernel-vs-plain checks and timings
 TP_EMULATED_LANES = 128
@@ -355,6 +391,321 @@ def generic_main(seed: int, lengths) -> tuple[dict, dict]:
     phase("generic_kernel_vs_plain", steps=steps, lanes=len(ragged),
           **{f"{k}_max_abs_err": e for k, e in errs.items()})
     return counts, errs
+
+
+def _spec_launches(lengths, level: int) -> int:
+    """svt_minplus launches of ``run_spec_batch`` at ``level`` on
+    sequences of ``lengths``: per group of one quantized length ``t_q``,
+    one a chunk of the ``t_q - 1`` symbols after the first and one a tail
+    symbol."""
+    from spec_viterbi_tpu_torch.utils.batching import quantize_t
+
+    return sum((t - 1) // level + (t - 1) % level for t in {quantize_t(int(x)) for x in lengths})
+
+
+def minplus_timed(fn, launches: int, repeats: int = DENSE_TIME_REPEATS) -> dict:
+    """The CUDA-event time of ``fn`` (median of ``repeats``) and, under
+    ``torch.profiler``, the device time of its ``svt_minplus`` launches and
+    the device's idle share (None where the profiler saw nothing)."""
+    from spec_viterbi_tpu_torch.probes.common import median_ms, profiled
+
+    ms = median_ms(fn, repeats=repeats)
+    kernel_us, busy_us, span_us = profiled(fn, "minplus")
+    return {"ms": ms, "launches": launches,
+            "kernel_ms": kernel_us / 1e3 if span_us else None,
+            "kernel_us_per_launch": kernel_us / launches if span_us else None,
+            "idle_share": 1.0 - busy_us / span_us if span_us else None}
+
+
+def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_r, path_u0) -> dict:
+    """The phases ``dense_main``, ``dense_kernel_vs_plain`` and
+    ``spec_main`` on the corpus model ``hmm``, and the ``time`` lines of
+    ``svt_minplus``. ``scores_u`` ([512, n] on the card), ``scores_r`` and
+    ``path_u0`` are the structured main path's uniform and ragged scores and
+    lane 0's path. Returns the ``minplus`` entry of the ``kernels`` line."""
+    import warnings
+
+    import torch
+
+    from spec_viterbi_tpu_torch import (
+        SpecializedViterbi,
+        ViterbiDecoder,
+        almost_equal_vec,
+        viterbi_scores_oracle,
+    )
+    from spec_viterbi_tpu_torch.io import generate_random_hmm
+    from spec_viterbi_tpu_torch.models import specializer
+    from spec_viterbi_tpu_torch.models.decoder import SUBLANE
+    from spec_viterbi_tpu_torch.ops import fused, tropical
+    from spec_viterbi_tpu_torch.probes import bounds
+    from spec_viterbi_tpu_torch.probes.common import median_ms
+    from spec_viterbi_tpu_torch.utils.batching import bucket_plan
+
+    dev = torch.device("cuda")
+    n_real = hmm.states_num
+    lanes_u, lanes_r = uniform[:DENSE_LANES], ragged[:DENSE_LANES]
+    steps = T_LEN - 1
+
+    # ---- dense_main: the dense baseline shape through the decoder --------
+    dec = ViterbiDecoder(hmm, mode="dense", device=dev)
+    check(dec.mode == "dense" and dec._fused is None and dec.dev.a is not None,
+          "mode='dense' takes the dense path")
+    n = dec.dev.padded
+    plan = bucket_plan([len(s) for s in lanes_r], lane_block=SUBLANE)
+    want = {"run_batch": steps,
+            "decode_batch": sum(t - 1 for _, t in plan) if plan else max(map(len, lanes_r)) - 1,
+            "decode": steps, "decode_path": steps}
+    tropical.reset_launches()
+    fused.reset_launches()
+    secs = {}
+    t0 = time.perf_counter()
+    handle = dec.prepare_batch(lanes_u)
+    torch.cuda.synchronize()
+    secs["uniform_prepare_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_u = dec.run_batch(handle)
+    torch.cuda.synchronize()
+    secs["uniform_run_batch"] = time.perf_counter() - t0
+    check(tropical.launches["minplus"] == want["run_batch"], "one svt_minplus launch a run_batch step")
+    t0 = time.perf_counter()
+    dense_r = dec.decode_batch(lanes_r)
+    secs["ragged_decode_batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_1 = dec.decode(lanes_u[0])
+    secs["decode_one"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_p = dec.decode_path(lanes_u[0])
+    secs["decode_path_one"] = time.perf_counter() - t0
+    dense_launches = tropical.launches["minplus"]
+    check(dense_launches == sum(want.values()), f"svt_minplus launches {dense_launches} == {want}")
+    check(not any(fused.launches.values()), f"no fused kernel in dense mode: {fused.launches}")
+    check(tuple(dense_u.shape) == (-(-DENSE_LANES // SUBLANE) * SUBLANE, n), "dense run_batch shape")
+    check(torch.equal(dense_u[:DENSE_LANES], scores_u[:DENSE_LANES]),
+          f"dense scores == svt_scores_fs scores, {DENSE_LANES} x {T_LEN}, bit for bit")
+    check(all(np.array_equal(d, s) for d, s in zip(dense_r, scores_r)),
+          "dense decode_batch == the masked kernel's scores, ragged, bit for bit")
+    u_np = dense_u[:DENSE_LANES, :n_real].cpu().numpy()
+    check(np.array_equal(dense_1, u_np[0]), "dense decode == lane 0 of run_batch")
+    check(np.array_equal(dense_p[0], path_u0[0]) and np.array_equal(dense_p[1], path_u0[1]),
+          "dense decode_path == lane 0 of decode_path_batch")
+    rnd = generate_random_hmm(AUTO_STATES, trans_per_state=AUTO_TRANS, seed=seed)
+    auto = ViterbiDecoder(rnd, mode="auto", device=dev)
+    check(auto.mode == "dense", "auto resolves to dense on the dense-class model")
+    rng = np.random.default_rng(seed + 8)
+    prefix = [rng.integers(0, rnd.emit_num, size=64).astype(np.int32) for _ in range(4)]
+    check(all(np.array_equal(g, viterbi_scores_oracle(rnd, s)) for g, s in zip(auto.decode_batch(prefix), prefix)),
+          f"auto (dense) == oracle, {AUTO_STATES} states, 4 x 64")
+    phase("dense_main", states=n_real, n=n, lanes=DENSE_LANES, padded_lanes=int(dense_u.shape[0]),
+          steps=steps, seconds=secs, launches={"minplus": dense_launches, **want},
+          ragged_buckets=[[len(i), t] for i, t in plan] if plan else None,
+          auto={"states": rnd.states_num, "mode": auto.mode, "oracle_lanes": len(prefix)}, bit_equal=True)
+
+    # ---- dense_kernel_vs_plain ------------------------------------------
+    errs = {}
+
+    def held(name, got, want):
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        same, err = equal_with_err(got[0], want[0])
+        check(same and all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+              f"svt_minplus == plain, {name}")
+        errs[name] = err
+
+    seqs_t, lengths = handle
+    obs = seqs_t.long()
+    em_t = dec.dev.emissions.T
+    a_tn = dec.dev.a.T[None]  # the TN layout, stride_i = 1
+    v0 = (em_t[:, obs[0]] + dec.dev.pi[:, None]).contiguous()
+    held("one dense batch step", tropical.minplus(a_tn, v0[None]), tropical.minplus_plain(a_tn, v0[None]))
+
+    def run_prefix(product):
+        v = v0
+        for t in range(1, DENSE_PLAIN_STEPS + 1):
+            v = torch.where((t < lengths)[None, :], em_t[:, obs[t]] + product(a_tn, v[None])[0], v)
+        return v
+
+    held(f"{DENSE_PLAIN_STEPS}-step prefix of run_batch", run_prefix(tropical.minplus),
+         run_prefix(tropical.minplus_plain))
+    short = dec.run_batch(dec.prepare_batch([s[: DENSE_PLAIN_STEPS + 1] for s in lanes_u]))
+    check(torch.equal(run_prefix(tropical.minplus).T, short), "the prefix loop == run_batch on the prefix")
+    v1 = (dec.dev.emissions[int(lanes_u[0][0])] + dec.dev.pi)[None, :, None]
+    a_rm = dec.dev.a_t[None]  # row-major, stride_k = 1
+    held("J = 1 argmin arm (the decode_path step)", tropical.minplus(a_rm, v1, argmin=True),
+         tropical.minplus_plain(a_rm, v1, argmin=True))
+    rng = np.random.default_rng(seed + 9)
+
+    def ties(*shape):
+        x = torch.as_tensor(rng.integers(0, 4, size=shape).astype(np.float32), device=dev)
+        return x.masked_fill_(x == 3, float("inf"))
+
+    edge_rm, edge_tn = ties(5, 1001, 999), ties(1, 999, 1001).transpose(1, 2)
+    idx = torch.tensor([4, 0, 4], device=dev)
+    b37, b1 = ties(3, 999, 37), ties(3, 999, 1)
+    for name, a, a_idx, b in (("ragged edge, gathered", edge_rm, idx, b37),
+                              ("ragged edge, TN view", edge_tn, None, b37),
+                              ("ragged edge, gathered J = 1", edge_rm, idx, b1)):
+        for am in (False, True):
+            held(f"{name}, argmin={am}", tropical.minplus(a, b, a_idx, argmin=am),
+                 tropical.minplus_plain(a, b, a_idx, argmin=am))
+    phase("dense_kernel_vs_plain", max_abs_err=errs, bit_equal=True)
+
+    # ---- spec_main: level 1 through the fused decoder, level 2 dense ----
+    ssecs = {}
+    spec1 = SpecializedViterbi(level=1, device=dev)
+    spec1.spec_with(hmm)
+    check(spec1._delegate is not None and spec1._delegate._fused is not None,
+          "level 1 delegates to the fused decoder")
+    fused.reset_launches()
+    tropical.reset_launches()
+    t0 = time.perf_counter()
+    got1 = spec1.run_spec_batch(lanes_u)
+    ssecs["level1_run_spec_batch"] = time.perf_counter() - t0
+    l1_counts = dict(fused.launches)
+    check(l1_counts["scores_fs"] == 1 and tropical.launches["minplus"] == 0,
+          f"level 1 ran svt_scores_fs: {l1_counts}")
+    check(all(np.array_equal(g, w) for g, w in zip(got1, u_np)), "level 1 == the dense scores")
+    del spec1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tropical.reset_launches()
+    spec2 = SpecializedViterbi(level=2, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        spec2.spec_with(hmm)
+        torch.cuda.synchronize()
+        ssecs["level2_spec_with"] = time.perf_counter() - t0
+    check(any("level=1" in str(w.message) for w in caught), "the level-2 slowdown warning fired")
+    radix = hmm.emit_num + 1
+    build_launches = tropical.launches["minplus"]
+    check(build_launches == radix, "one svt_minplus launch a new symbol")
+    stack_bytes = spec2.tuple_ops.numel() * 4
+    check(tuple(spec2.tuple_ops.shape) == (radix**2, n, n)
+          and stack_bytes == SpecializedViterbi.spec_memory_bytes(n_real, hmm.emit_num, 2),
+          "level-2 stack shape")
+    tropical.reset_launches()
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    spec_u = spec2.run_spec_batch(lanes_u)
+    ssecs["level2_run_spec_batch_uniform"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec_r = spec2.run_spec_batch(lanes_r)
+    ssecs["level2_run_spec_batch_ragged"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec_1 = spec2.run_spec(lanes_u[0])
+    ssecs["level2_run_spec_one"] = time.perf_counter() - t0
+    spec_launches = tropical.launches["minplus"]
+    want_spec = (_spec_launches(map(len, lanes_u), 2) + _spec_launches(map(len, lanes_r), 2)
+                 + steps // 2 + steps % 2)
+    check(spec_launches == want_spec and not any(fused.launches.values()),
+          f"svt_minplus launches {spec_launches} == {want_spec}, no fused kernel")
+    peak = torch.cuda.max_memory_allocated()
+    diffs = [float(np.abs(g.astype(np.float64) - w)[np.isfinite(g) & np.isfinite(w)].max(initial=0.0))
+             for g, w in zip(spec_u + spec_r, list(u_np) + dense_r)]
+    check(np.array_equal(spec_1, spec_u[0]), "run_spec == lane 0 of run_spec_batch")
+    check(all(almost_equal_vec(g, w) for g, w in zip(spec_u + spec_r, list(u_np) + dense_r)),
+          f"level-2 scores within 1.0 of the dense scores (largest difference {max(diffs)})")
+    for i, p in SPEC_PLAIN_PRODUCTS:
+        a, b = spec2.ops[i][None], spec2.ops[p][None]
+        k = tropical.minplus(a, b)
+        held(f"level-2 product {p} + {i} x {radix}", k, tropical.minplus_plain(a, b))
+        check(torch.equal(k[0], spec2.tuple_ops[p + i * radix]), "the product == the stack's entry")
+        del k
+    batch_u = np.stack(lanes_u)  # [50, 3500]: 1,749 chunks and a tail symbol
+
+    def gathered_prefix(product):
+        v = spec2.start_ops[torch.as_tensor(batch_u[:, 0].astype(np.int64), device=dev)]
+        pairs = batch_u[:, 1 : 1 + 2 * SPEC_PLAIN_CHUNKS].astype(np.int64).reshape(DENSE_LANES, -1, 2)
+        idxs = torch.as_tensor((pairs[:, :, 0] + radix * pairs[:, :, 1]).T.copy(), device=dev)
+        for c in range(SPEC_PLAIN_CHUNKS):
+            v = product(spec2.tuple_ops, v[:, :, None], idxs[c])[:, :, 0]
+        return v
+
+    held(f"{SPEC_PLAIN_CHUNKS}-chunk prefix of the gathered decode", gathered_prefix(tropical.minplus),
+         gathered_prefix(tropical.minplus_plain))
+    phase("spec_main", states=n_real, n=n, level=2, products=radix**2, stack_bytes=stack_bytes,
+          seconds=ssecs, level1_launches=l1_counts,
+          launches={"build": build_launches, "decode": spec_launches},
+          peak_allocated_bytes=peak, largest_difference_to_dense=max(diffs),
+          within_almost_equal=True, max_abs_err=errs)
+
+    # ---- time lines of svt_minplus, each held to its bound ---------------
+    def time_line(**line):
+        phase("time", kernel="minplus", card=card, **line)
+        for key in ("ms", "kernel_ms"):
+            check(line[key] is None or line[key] >= line["bound_ms"],
+                  f"svt_minplus {line['what']}: {key} {line[key]} reads below its bound {line['bound_ms']}")
+
+    j = int(dense_u.shape[0])
+    step_work = bounds.minplus(1, n, n, j, 1)
+    step_bound, step_by = step_work.bound()
+    timed = minplus_timed(lambda: [tropical.minplus(a_tn, v0[None]) for _ in range(steps)], steps)
+    run_ms = median_ms(lambda: dec.run_batch(handle), repeats=DENSE_TIME_REPEATS)
+    plain_ms = median_ms(lambda: [tropical.minplus_plain(a_tn, v0[None]) for _ in range(DENSE_PLAIN_STEPS)],
+                         repeats=DENSE_TIME_REPEATS)
+    time_line(what="dense run_batch", lanes=DENSE_LANES, padded_lanes=j, steps=steps, **timed,
+              us_per_step=timed["ms"] * 1e3 / steps, run_batch_ms=run_ms,
+              run_batch_us_per_step=run_ms * 1e3 / steps, plain_steps=DENSE_PLAIN_STEPS,
+              plain_ms=plain_ms, plain_us_per_step=plain_ms * 1e3 / DENSE_PLAIN_STEPS,
+              bound_ms=steps * step_bound, bound_by=step_by, shape=tropical.minplus_shape(1, n, n, j, dev))
+    # The bound counts the operator's bytes at the HBM rate. The decode
+    # loop reuses one operator, which stays in the 50 MB L2 and is read
+    # faster than that (no L2 rate on the data sheet, so no bound for it):
+    # the line times copies taken in turn, each read from HBM, and gives
+    # the reused operator's times beside them as resident_*.
+    cold = [a_rm.clone() for _ in range(J1_COLD_COPIES)]
+    for am in (False, True):
+        work = bounds.minplus(1, n, n, 1, 1, argmin=am)
+        t1 = minplus_timed(lambda: [tropical.minplus(cold[s % J1_COLD_COPIES], v1, argmin=am)
+                                    for s in range(steps)], steps)
+        warm = minplus_timed(lambda: [tropical.minplus(a_rm, v1, argmin=am) for _ in range(steps)], steps)
+        p1 = median_ms(lambda: [tropical.minplus_plain(a_rm, v1, argmin=am) for _ in range(DENSE_PLAIN_STEPS)],
+                       repeats=DENSE_TIME_REPEATS)
+        whole = median_ms(lambda: (dec.decode_path if am else dec.decode)(lanes_u[0]), repeats=1)
+        res_us = warm["kernel_us_per_launch"]
+        time_line(what="J = 1 step" + (", argmin" if am else ""), steps=steps,
+                  operator=f"{J1_COLD_COPIES} copies in turn, each read from HBM", **t1,
+                  us_per_step=t1["ms"] * 1e3 / steps,
+                  resident_ms=warm["ms"], resident_kernel_us_per_launch=res_us,
+                  resident_idle_share=warm["idle_share"],
+                  resident_read_tb_per_s=work.bytes / res_us / 1e6 if res_us else None,
+                  **{("decode_path_ms" if am else "decode_ms"): whole}, plain_steps=DENSE_PLAIN_STEPS,
+                  plain_ms=p1, plain_us_per_step=p1 * 1e3 / DENSE_PLAIN_STEPS,
+                  bound_ms=steps * work.bound()[0], bound_by=work.bound()[1],
+                  shape=tropical.minplus_shape(1, n, n, 1, dev))
+    del cold
+    build = minplus_timed(lambda: specializer._add_level(spec2.ops, spec2.ops), radix)
+    b_plain = median_ms(lambda: tropical.minplus_plain(spec2.ops[7][None], spec2.ops[13][None]), repeats=1)
+    build_work = bounds.minplus(radix, n, n, n, 1)
+    time_line(what="level-2 build (_add_level)", products=radix**2, **build,
+              us_per_product=build["ms"] * 1e3 / radix**2, plain_ms_one_product=b_plain,
+              bound_ms=radix * build_work.bound()[0], bound_by=build_work.bound()[1],
+              shape=tropical.minplus_shape(radix, n, n, n, dev))
+    chunks = steps // 2
+    pairs = batch_u[:, 1 : 1 + 2 * chunks].astype(np.int64).reshape(DENSE_LANES, chunks, 2)
+    tuples = pairs[:, :, 0] + radix * pairs[:, :, 1]  # [50, 1749]
+    # a launch reads the distinct operators its lanes index, once each
+    distinct = [len(np.unique(tuples[:, c])) for c in range(chunks)] + [len(np.unique(batch_u[:, -1]))]
+    launch_bounds = [bounds.minplus(DENSE_LANES, n, n, 1, d, gathered=True).bound() for d in distinct]
+    dec_t = minplus_timed(lambda: spec2._decode_batch_uniform(batch_u), chunks + 1)
+    g_plain = median_ms(lambda: gathered_prefix(tropical.minplus_plain), repeats=1)
+    time_line(what="gathered level-2 decode", lanes=DENSE_LANES, chunks=chunks, tail_launches=1, **dec_t,
+              us_per_chunk=dec_t["ms"] * 1e3 / (chunks + 1), plain_chunks=SPEC_PLAIN_CHUNKS, plain_ms=g_plain,
+              plain_us_per_chunk=g_plain * 1e3 / SPEC_PLAIN_CHUNKS, bound_ms=sum(b for b, _ in launch_bounds),
+              bound_by="bytes" if all(by == "bytes" for _, by in launch_bounds) else "operations",
+              distinct_operators_a_launch_mean=float(np.mean(distinct)),
+              shape=tropical.minplus_shape(DENSE_LANES, n, n, 1, dev))
+    del spec2, dec, auto
+    torch.cuda.empty_cache()
+    return {
+        "name": "minplus", "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/tropical.cu",
+        "replaces": "spec_viterbi_tpu/ops/tropical.py:89", "also_replaces": "spec_viterbi_tpu/ops/tropical.py:31-43",
+        "launches": dense_launches + build_launches + spec_launches, "dense_main_launches": dense_launches,
+        "spec_main_launches": build_launches + spec_launches, "max_abs_err": max(errs.values()),
+        "ms": timed["ms"] / steps, "plain_ms": plain_ms / DENSE_PLAIN_STEPS, "bound_ms": step_bound,
+        "bound_by": step_by, "library_ms": None,
+        "shape": f"one dense batch step: [{n}, {n}] (min,+) [{n}, {j}]",
+    }
 
 
 def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r, bt_calls: list) -> tuple[list, list]:
@@ -1060,6 +1411,7 @@ def main() -> int:
     check(np.array_equal(again[1], paths_s), "path stream finalize again")
 
     generic_counts, generic_errs = generic_main(args.seed, lengths)
+    minplus_entry = dense_and_spec(args.seed, card, hmm, uniform, ragged, scores_u, scores_r, paths_u[0])
     window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r, bt_calls)
     main_calls = [c for c in bt_calls if not c["call"].startswith(("TP", "DP"))]
     lane_calls = sum(c["lanes"] for c in main_calls)
@@ -1210,7 +1562,7 @@ def main() -> int:
          "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": None,
          "shape": f"{lanes} lanes x {steps} steps", **chain.get(name, {})}
         for name, src, replaces, launched, err, lanes in entries
-    ] + window_kernels + probe_kernels
+    ] + window_kernels + probe_kernels + [minplus_entry]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

@@ -9,11 +9,14 @@ the originals. Every entry point takes an explicit ``device``.
 from spec_viterbi_tpu_torch.hmm import HMM, almost_equal_vec
 from spec_viterbi_tpu_torch.io import read_emit_seq, read_hmm
 from spec_viterbi_tpu_torch.models import (
+    DeviceHMM,
+    SpecializedViterbi,
     ViterbiDecoder,
     viterbi_path_oracle,
     viterbi_scores_oracle,
 )
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+from spec_viterbi_tpu_torch.utils import OperatorCache
 
 __version__ = "0.1.0"
 
@@ -22,7 +25,10 @@ __all__ = [
     "almost_equal_vec",
     "read_hmm",
     "read_emit_seq",
+    "DeviceHMM",
     "ViterbiDecoder",
+    "SpecializedViterbi",
+    "OperatorCache",
     "StructuredOperator",
     "viterbi_path_oracle",
     "viterbi_scores_oracle",

@@ -9,6 +9,7 @@ as ``−log2(p)``; ``p == 0`` maps to ``+inf``, the (min,+) semiring zero.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 
@@ -151,6 +152,29 @@ class HMM:
         mat = np.full((self.emit_num, n), ZERO_PROB, dtype=MOD_PROB_DTYPE)
         mat[:, : self.states_num] = self.emissions
         return mat
+
+    def fingerprint(self) -> str:
+        """Stable content hash, the operator cache's key (the JAX package's
+        hash, so both packages key a model alike). Shape and dtype delimit
+        each array, and index arrays hash as int64, floats as float32."""
+        h = hashlib.sha256()
+        h.update(np.int64([self.states_num, self.emit_num, self.trans_num]).tobytes())
+        for arr in (
+            self.trans_rows,
+            self.trans_cols,
+            self.trans_probs,
+            self.emissions,
+            self.start_probabilities_cols,
+            self.start_probabilities,
+        ):
+            a = np.ascontiguousarray(arr)
+            canon = (
+                a.astype(np.int64) if np.issubdtype(a.dtype, np.integer)
+                else a.astype(np.float32)
+            )
+            h.update(repr((canon.shape, str(canon.dtype))).encode())
+            h.update(canon.tobytes())
+        return h.hexdigest()[:32]
 
     def validate(self) -> None:
         """Structural sanity checks (bounds, shapes)."""

@@ -1,24 +1,32 @@
-"""Non-specialized Viterbi decoding, structured mode.
+"""Non-specialized Viterbi decoding: dense and structured modes.
 
 The port of ``spec_viterbi_tpu/models/decoder.py``. API parity target:
 ``run_Viterbi(hmm, seq) -> Mod_prob_vec_t``, the final per-state −log2
 score vector; ``decode_path``/``decode_path_batch`` add the exact Viterbi
-path and ``streaming()`` the stream engines. On a CUDA device,
-fused-eligible operators decode batches through the hand-written kernels
-of :mod:`spec_viterbi_tpu_torch.ops.fused`; otherwise (a CPU device,
-``use_kernels=False``, or an operator too irregular for the kernels) the
-plain structured loop runs, the counterpart of the JAX package's XLA
-structured path.
+path and ``streaming()`` the stream engines.
+
+Dense mode is a loop over steps with one (min,+) product each
+(:mod:`spec_viterbi_tpu_torch.ops.dispatch`: the hand-written kernel
+``svt_minplus`` on ``cuda``, its plain version on ``cpu``) and the
+emission add and the length mask in PyTorch around it. Structured mode
+decodes through the diagonal/row/col-decomposed operator: on a CUDA
+device, fused-eligible operators decode batches through the hand-written
+kernels of :mod:`spec_viterbi_tpu_torch.ops.fused`; otherwise (a CPU
+device, ``use_kernels=False``, or an operator too irregular for the
+kernels) the plain structured loop runs, the counterpart of the JAX
+package's XLA structured path.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from spec_viterbi_tpu_torch.hmm import HMM, pad_to_lane, validate_obs_seq
 from spec_viterbi_tpu_torch.models.streaming_xla import PlainStreamDecoder
-from spec_viterbi_tpu_torch.ops import fused
+from spec_viterbi_tpu_torch.ops import dispatch, fused
 from spec_viterbi_tpu_torch.ops.structured import (
     StructuredOperator,
     structured_path_batch,
@@ -26,7 +34,7 @@ from spec_viterbi_tpu_torch.ops.structured import (
 )
 from spec_viterbi_tpu_torch.utils.batching import bucket_plan, pad_batch
 
-# lane multiple and bucket block of the plain path, as in the JAX package
+# lane multiple and bucket block of the plain paths, as in the JAX package
 SUBLANE = 8
 
 
@@ -41,15 +49,97 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceHMM:
+    """An HMM as dense, lane-padded tensors on one device.
+
+    ``a_t`` is the transposed transition operator the matvec recurrence
+    multiplies by, ``a`` the untransposed matrix the batched step reads
+    (through its transposed view; on an H100 that view's step is 1-4%
+    faster than the same product on ``a_t`` at 56 and 512 lanes,
+    ``probes/minplus.py``). Padding states carry +inf everywhere,
+    so they stay at the semiring zero through any number of steps and are
+    sliced off on extraction. ``dense=False`` leaves both out (structured
+    mode reads only the emissions and π).
+    """
+
+    a_t: torch.Tensor | None  # [n, n]
+    a: torch.Tensor | None  # [n, n]
+    pi: torch.Tensor  # [n]
+    emissions: torch.Tensor  # [E, n]
+    states_num: int
+    padded: int
+
+    @classmethod
+    def from_hmm(cls, hmm: HMM, dense: bool = True, *, device: torch.device | str) -> "DeviceHMM":
+        device = resolve_device(device)
+        n = pad_to_lane(hmm.states_num)
+        a_t = a = None
+        if dense:
+            mat = hmm.transition_matrix(pad_to=n)
+            a_t = torch.as_tensor(mat.T.copy(), device=device)
+            a = torch.as_tensor(mat, device=device)
+        return cls(
+            a_t=a_t,
+            a=a,
+            pi=torch.as_tensor(hmm.start_vector(pad_to=n), device=device),
+            emissions=torch.as_tensor(hmm.emission_matrix(pad_to=n), device=device),
+            states_num=hmm.states_num,
+            padded=n,
+        )
+
+
+def _decode_scores(a_t, pi, em, seq: np.ndarray) -> torch.Tensor:
+    """Dense scores of one validated sequence: ``v ← em[o] + a_t ⊗ v``."""
+    v = em[int(seq[0])] + pi
+    for o in seq[1:].tolist():
+        v = em[o] + dispatch.step_mv(a_t, v)
+    return v
+
+
+def _decode_scores_and_path(a_t, pi, em, seq: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense scores and the Viterbi path of one validated sequence: int32
+    pointers ``[T-1, 1, n]`` on the device (the lowest source wins a tie),
+    walked back by ``backtrace_plain``."""
+    v = em[int(seq[0])] + pi
+    src = torch.empty((len(seq) - 1, 1, a_t.shape[0]), dtype=torch.int32, device=v.device)
+    for t, o in enumerate(seq[1:].tolist()):
+        u, src[t, 0] = dispatch.step_mv_argmin(a_t, v)
+        v = em[o] + u
+    last = torch.argmin(v).to(torch.int32)[None]
+    rev = fused.backtrace_plain(src, last)  # [T-1, 1]
+    return v, torch.cat([rev[:, 0], last])
+
+
+def _decode_scores_batch(a, pi, em, seqs_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """seqs_t: [T, B] int32 (padded), lengths: [B]. Returns [B, n].
+
+    The carry is state-major ([n, B]), so each step is one TN product that
+    reads the transition operator once for the whole batch; a lane freezes
+    once ``t`` reaches its length."""
+    em_t = em.T  # [n, E]
+    obs = seqs_t.long()
+    v = em_t[:, obs[0]] + pi[:, None]
+    for t in range(1, obs.shape[0]):
+        v_new = em_t[:, obs[t]] + dispatch.batch_step_t(a, v)
+        v = torch.where((t < lengths)[None, :], v_new, v)
+    return v.T
+
+
 class ViterbiDecoder:
     """Non-specialized decoder.
 
-    ``mode="structured"`` decodes through the diagonal/row/col-decomposed
-    operator; ``mode="auto"`` picks it when the decomposition is effective
-    (cost ratio < 1/8 of dense). Dense mode is not ported yet, so ``auto``
-    resolving to dense raises. ``use_kernels=False`` (the JAX package's
-    ``use_pallas=False``) pins the plain structured loop. ``device`` is
-    required: ``"cpu"`` or ``"cuda[:i]"``.
+    - ``"dense"``: the dense (min,+) recurrence, one product a step
+      through ``svt_minplus`` (works for any model);
+    - ``"structured"``: the diagonal/row/col-decomposed operator,
+      O((D+R+C)·n) a step instead of O(n²); fused-eligible operators get
+      the whole-sequence kernels on ``cuda``.
+
+    ``mode="auto"`` picks structured when the decomposition is effective
+    (cost ratio < 1/8 of dense), else dense, as the JAX package does.
+    ``use_kernels=False`` (the JAX package's ``use_pallas=False``) pins the
+    plain structured loop. ``device`` is required: ``"cpu"`` or
+    ``"cuda[:i]"``.
     """
 
     MODES = ("auto", "dense", "structured")
@@ -66,45 +156,60 @@ class ViterbiDecoder:
             raise ValueError(f"mode must be one of {self.MODES}, got {mode!r}")
         self.device = resolve_device(device)
         self.hmm = hmm
-        padded = pad_to_lane(hmm.states_num)
-        sop = StructuredOperator.from_hmm(hmm, pad_to=padded)
-        if mode == "dense" or (mode == "auto" and sop.cost_ratio() >= 0.125):
-            raise NotImplementedError(
-                "dense mode is not ported to PyTorch yet (ROADMAP A6)"
-            )
-        self.mode = "structured"
+        self.states_num = hmm.states_num
         self._use_kernels = use_kernels
         self._stream_engine = None
-        self.states_num = hmm.states_num
-        self._sop = sop
-        self._sop_arrs = sop.to(self.device)
-        em = hmm.emission_matrix(pad_to=padded)
-        pi = hmm.start_vector(pad_to=padded)
-        self.emissions = torch.as_tensor(em, device=self.device)  # [E, n]
-        self.pi = torch.as_tensor(pi, device=self.device)  # [n]
+        padded = pad_to_lane(hmm.states_num)
+        self._sop = self._sop_arrs = None
+        if mode in ("auto", "structured"):
+            sop = StructuredOperator.from_hmm(hmm, pad_to=padded)
+            if mode == "structured" or sop.cost_ratio() < 0.125:
+                self._sop, self._sop_arrs = sop, sop.to(self.device)
+                mode = "structured"
+            else:
+                mode = "dense"
+        self.mode = mode
+        # structured mode never reads the dense [n, n] operators
+        self.dev = DeviceHMM.from_hmm(hmm, dense=mode == "dense", device=self.device)
         self._fused = None
         if (
-            use_kernels is not False
+            mode == "structured"
+            and use_kernels is not False
             and self.device.type == "cuda"
-            and fused.fused_eligible(sop)
+            and fused.fused_eligible(self._sop)
         ):
-            self._fused = fused.FusedStructuredDecoder(sop, em, pi, device=self.device)
+            self._fused = fused.FusedStructuredDecoder(
+                self._sop, hmm.emission_matrix(pad_to=padded), hmm.start_vector(pad_to=padded),
+                device=self.device,
+            )
 
     def decode(self, seq: np.ndarray) -> np.ndarray:
         """``run_Viterbi`` parity: final score vector for one sequence."""
+        if self.mode == "dense":
+            seq = self._validated(seq)
+            v = _decode_scores(self.dev.a_t, self.dev.pi, self.dev.emissions, seq)
+            return v[: self.states_num].cpu().numpy()
         return self.decode_batch([np.asarray(seq)], bucketed=False)[0]
 
-    def decode_path(self, seq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """(scores, path): the final score vector and the Viterbi path, with
-        the oracle's tie rule. Runs the plain argmin scan on the decoder's
-        device, as the JAX decoder runs this method on its XLA structured
-        path and never on the fused kernel."""
+    def _validated(self, seq) -> np.ndarray:
         seq = validate_obs_seq(seq, self.hmm.emit_num)
         if len(seq) == 0:
             raise ValueError("cannot decode an empty sequence")
+        return seq
+
+    def decode_path(self, seq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, path): the final score vector and the Viterbi path, with
+        the oracle's tie rule. Dense mode runs the argmin product a step;
+        structured mode the plain argmin scan on the decoder's device, as
+        the JAX decoder runs this method on its XLA structured path and
+        never on the fused kernel."""
+        seq = self._validated(seq)
+        if self.mode == "dense":
+            v, path = _decode_scores_and_path(self.dev.a_t, self.dev.pi, self.dev.emissions, seq)
+            return v[: self.states_num].cpu().numpy(), path.cpu().numpy()
         s = torch.as_tensor(seq, device=self.device)[:, None]  # [T, 1]
-        em_t = self.emissions.T
-        v0 = em_t[:, s[0].long()] + self.pi[:, None]
+        em_t = self.dev.emissions.T
+        v0 = em_t[:, s[0].long()] + self.dev.pi[:, None]
         v, src = structured_path_batch(
             self._sop, self._sop_arrs, em_t, v0, s[1:], None, torch.int32
         )
@@ -138,21 +243,25 @@ class ViterbiDecoder:
         unbounded input, the ``stream_*_path`` family for exact paths by
         checkpoint and rematerialize, and ``stream_save``/``stream_load``.
 
-        A fused-eligible operator gets the fused engine on the decoder's
-        device (the kernels on ``cuda``, their plain versions on ``cpu``),
-        unless ``use_kernels=False``; every other case gets the plain
-        stream engine, which takes any operator. The two engines' saved
-        states are not interchangeable.
+        A fused-eligible operator of a structured-mode decoder gets the
+        fused engine on the decoder's device (the kernels on ``cuda``,
+        their plain versions on ``cpu``), unless ``use_kernels=False``;
+        every other case, dense mode included, gets the plain stream
+        engine, which takes any operator (a dense-mode decoder builds the
+        decomposition here, on demand). The two engines' saved states are
+        not interchangeable.
         """
         if self._stream_engine is None:
-            n = self._sop.n
+            sop = self._sop or StructuredOperator.from_hmm(self.hmm, pad_to=self.dev.padded)
+            n = sop.n
             em, pi = self.hmm.emission_matrix(pad_to=n), self.hmm.start_vector(pad_to=n)
-            if self._use_kernels is not False and fused.fused_eligible(self._sop):
+            if (self._sop is not None and self._use_kernels is not False
+                    and fused.fused_eligible(sop)):
                 self._stream_engine = self._fused or fused.FusedStructuredDecoder(
-                    self._sop, em, pi, device=self.device
+                    sop, em, pi, device=self.device
                 )
             else:
-                self._stream_engine = PlainStreamDecoder(self._sop, em, pi, device=self.device)
+                self._stream_engine = PlainStreamDecoder(sop, em, pi, device=self.device)
         return self._stream_engine
 
     def prepare_batch(self, seqs: list[np.ndarray], t_pad: int | None = None):
@@ -174,8 +283,12 @@ class ViterbiDecoder:
         if self._fused is not None:
             return self._fused.run_prepared(handle)
         seqs_t, lengths = handle
-        em_t = self.emissions.T
-        v0 = em_t[:, seqs_t[0].long()] + self.pi[:, None]
+        if self.mode == "dense":
+            return _decode_scores_batch(
+                self.dev.a, self.dev.pi, self.dev.emissions, seqs_t, lengths
+            )
+        em_t = self.dev.emissions.T
+        v0 = em_t[:, seqs_t[0].long()] + self.dev.pi[:, None]
         return structured_scores_batch(
             self._sop, self._sop_arrs, em_t, v0, seqs_t[1:], lengths
         ).T

@@ -196,6 +196,11 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_occupancy.restype = i32
     lib.svt_scores_fs_shape.argtypes = [i32, i32, vp, vp, vp]
     lib.svt_scores_fs_shape.restype = i32
+    i64 = ctypes.c_longlong
+    lib.svt_minplus.argtypes = [vp] * 5 + [i64] * 3 + [i32] * 4 + [vp] * 3
+    lib.svt_minplus.restype = i32
+    lib.svt_minplus_shape.argtypes = [i32] * 4 + [vp] * 5
+    lib.svt_minplus_shape.restype = i32
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):
         if lib.svt_desc_size(which) != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout differs from csrc/")

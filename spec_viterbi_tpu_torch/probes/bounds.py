@@ -164,3 +164,21 @@ def emsel_mma_ms(scheme: str, n: int, lanes: int, steps: int, p: int, e: int = 3
     terms = {"gather": 0, "tf32": 1, "bf16": 1, "split2": 2, "split3": 3}[scheme]
     kind = "tf32" if scheme == "tf32" else "bf16"
     return 2 * e * terms * p * n * lanes * steps / TENSOR_OPS_PER_S[kind] * 1e3
+
+
+def minplus(g: int, i: int, k: int, j: int, a_operators: int, argmin: bool = False,
+            gathered: bool = False) -> Work:
+    """``svt_minplus``, ``C[g] = A_g ⊗ B[g]``: an add and a min per
+    candidate, 2·G·I·K·J; the ``a_operators`` distinct [I, K] operators the
+    products read (1 when shared; for a gathered launch the distinct
+    indices this launch's data holds), B read and C written once, the int32
+    argmin and the int64 index vector where there is one. All bytes go at
+    the HBM rate: a launch whose operator a previous launch left in the
+    50 MB L2 can beat this (the data sheet gives no L2 rate), so a time
+    held to it must read its operator from HBM."""
+    nbytes = (a_operators * i * k + g * k * j + g * i * j) * F32
+    if argmin:
+        nbytes += g * i * j * I32
+    if gathered:
+        nbytes += g * 8
+    return Work(2.0 * g * i * k * j, nbytes)

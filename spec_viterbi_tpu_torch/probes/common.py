@@ -48,6 +48,31 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
+def profiled(fn, kernel: str) -> tuple[float, float | None, float | None]:
+    """(device µs of the kernels whose name holds ``kernel``, device busy
+    µs, device span µs) of one call of ``fn`` under ``torch.profiler``;
+    ``(0.0, None, None)`` where it saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if not spans:
+        return 0.0, None, None
+    busy_kernel = sum(end - start for start, end, name in spans if kernel in name)
+    busy, reach = 0.0, spans[0][0]
+    for start, end, _ in spans:  # the union of the device intervals
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy_kernel, busy, reach - spans[0][0]
+
+
 def fit_slope(ps, ts) -> float:
     """Least-squares slope of time over pass count."""
     return float(np.polyfit(np.asarray(ps, np.float64), np.asarray(ts, np.float64), 1)[0])

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from spec_viterbi_tpu_torch.probes import bounds
-from spec_viterbi_tpu_torch.probes.common import T_LEN, Record, median_ms
+from spec_viterbi_tpu_torch.probes.common import T_LEN, Record, median_ms, profiled
 
 STATES = 2432
 OFFSETS = (1, 3)
@@ -79,30 +79,6 @@ def decoders(seed: int, device):
     return hmm, local, rank
 
 
-def _profiled(fn) -> tuple[float, float | None, float | None]:
-    """(window kernel device µs, device busy µs, device span µs) of one
-    call of ``fn`` under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if not spans:
-        return 0.0, None, None
-    kernel = sum(end - start for start, end, name in spans if "window_kernel" in name)
-    busy, reach = 0.0, spans[0][0]
-    for start, end, _ in spans:  # the union of the device intervals
-        if end > reach:
-            busy += end - max(start, reach)
-            reach = end
-    return kernel, busy, reach - spans[0][0]
-
-
 def _host_s(fn) -> float:
     """Median host seconds to enqueue ``fn`` (the device may still run)."""
     secs = []
@@ -143,7 +119,7 @@ def run(rec: Record, device, seed: int = 0) -> dict:
                 bound_ms, bound_by = bounds.window_scores(*geometry, steps, chunks, SYMBOLS).bound()
             ms = median_ms(fn)
             host = _host_s(fn)
-            kernel_us, busy_us, span_us = _profiled(fn)
+            kernel_us, busy_us, span_us = profiled(fn, "window_kernel")
             out[f"{form}_{kernel}"] = rec.emit(
                 f"window_{form}_{kernel}", kernel=kernel, form=form, lanes=lanes,
                 windows_per_launch=windows, steps=steps, chunks=chunks, ms=ms,

@@ -88,16 +88,6 @@ def test_device_is_required_and_checked():
         port.ViterbiDecoder(hmm, mode="structured", device="meta")
 
 
-def test_dense_mode_is_not_ported_yet():
-    dense = generate_random_hmm(30, trans_per_state=25, seed=2)
-    with pytest.raises(NotImplementedError, match="A6"):
-        port.ViterbiDecoder(dense, mode="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        port.ViterbiDecoder(dense, mode="dense", device="cpu")
-    with pytest.raises(ValueError, match="mode"):
-        port.ViterbiDecoder(dense, mode="fast", device="cpu")
-
-
 def test_out_of_range_symbol_raises():
     hmm = generate_profile_hmm(20, seed=1)
     dec = port.ViterbiDecoder(hmm, mode="structured", device="cpu")

@@ -23,6 +23,7 @@ from spec_viterbi_tpu.models import oracle as ref_oracle
 from spec_viterbi_tpu.ops import fused_pallas as ref_fused
 from spec_viterbi_tpu.ops.structured import StructuredOperator as RefOperator
 from spec_viterbi_tpu.utils import batching as ref_batching
+from spec_viterbi_tpu.utils.cache import OperatorCache as RefCache
 
 import spec_viterbi_tpu_torch.hmm as port_hmm
 from spec_viterbi_tpu_torch.convert import (
@@ -36,6 +37,7 @@ from spec_viterbi_tpu_torch.models import oracle as port_oracle
 from spec_viterbi_tpu_torch.ops import fused as port_fused
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.utils import batching as port_batching
+from spec_viterbi_tpu_torch.utils.cache import OperatorCache
 
 torch.set_num_threads(1)
 
@@ -247,11 +249,55 @@ def test_profile_generator_is_seeded():
         port_gen.generate_profile_hmm(1)
 
 
+@pytest.mark.parametrize("name,model", _models())
+def test_fingerprint_matches(name, model):
+    port = hmm_from_reference(model)
+    assert port.fingerprint() == model.fingerprint()
+    assert len(port.fingerprint()) == 32
+    # int32 index arrays hash as their int64 values, in both packages
+    narrow = hmm_from_reference(model)
+    narrow.trans_rows = narrow.trans_rows.astype(np.int32)
+    assert narrow.fingerprint() == port.fingerprint()
+    changed = hmm_from_reference(model)
+    changed.emissions = changed.emissions.copy()
+    changed.emissions[0, 0] += 1.0
+    assert changed.fingerprint() != port.fingerprint()
+
+
+def test_operator_cache_round_trip_and_cross_read(tmp_path):
+    """Store and load in each package; each reads the entry the other
+    wrote (same format version and names); a miss and a corrupt entry
+    return None; the port's default directory is its own."""
+    rng = np.random.default_rng(3)
+    arrays = {"start_ops": rng.normal(size=(4, 128)).astype(np.float32),
+              "ops_id": rng.normal(size=(5, 128, 128)).astype(np.float32)}
+    port, ref = OperatorCache(str(tmp_path)), RefCache(str(tmp_path))
+    assert port.load("f" * 32, 2, 128) is None
+    for writer, key in ((port, "a" * 32), (ref, "b" * 32)):
+        writer.store(key, 2, 128, arrays, kind="dense")
+        for reader in (port, ref):
+            got = reader.load(key, 2, 128, kind="dense")
+            assert sorted(got) == sorted(arrays)
+            for k, a in arrays.items():
+                assert not got[k].flags.writeable and np.array_equal(got[k], a)
+        assert port.load(key, 2, 128, kind="struct") is None
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        os.path.basename(ref._path(k, 2, 128, "dense")) for k in ("a" * 32, "b" * 32))
+    corrupt = port._path("c" * 32, 1, 128, "dense")
+    os.makedirs(corrupt)
+    with open(os.path.join(corrupt, "ops_id.npy"), "wb") as f:
+        f.write(b"not an array")
+    assert port.load("c" * 32, 1, 128) is None and not os.path.exists(corrupt)
+    assert OperatorCache().cache_dir.endswith(os.path.join(".cache", "spec_viterbi_tpu_torch"))
+
+
 def test_import_loads_no_jax():
     code = (
         "import sys, spec_viterbi_tpu_torch, spec_viterbi_tpu_torch.ops.fused, "
         "spec_viterbi_tpu_torch.convert, spec_viterbi_tpu_torch.io.generators, "
-        "spec_viterbi_tpu_torch.models.streaming_xla, spec_viterbi_tpu_torch.parallel\n"
+        "spec_viterbi_tpu_torch.models.streaming_xla, spec_viterbi_tpu_torch.parallel, "
+        "spec_viterbi_tpu_torch.ops.tropical, spec_viterbi_tpu_torch.ops.dispatch, "
+        "spec_viterbi_tpu_torch.models.specializer, spec_viterbi_tpu_torch.utils.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'spec_viterbi_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -11,15 +11,22 @@ import numpy as np
 import pytest
 import torch
 
-from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_path_oracle, viterbi_scores_oracle
+from spec_viterbi_tpu_torch import (
+    SpecializedViterbi,
+    ViterbiDecoder,
+    almost_equal_vec,
+    viterbi_path_oracle,
+    viterbi_scores_oracle,
+)
 from spec_viterbi_tpu_torch.hmm import HMM, to_modified_prob_np
 from spec_viterbi_tpu_torch.io.generators import (
     generate_banded_hmm,
     generate_profile_hmm,
+    generate_random_hmm,
     generate_tie_heavy_banded_hmm,
     generate_tie_heavy_hmm,
 )
-from spec_viterbi_tpu_torch.ops import fused
+from spec_viterbi_tpu_torch.ops import fused, tropical
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator, structured_mv_argmin
 from spec_viterbi_tpu_torch.parallel import FusedTPDecoder
 from spec_viterbi_tpu_torch.parallel import fused_tp
@@ -1064,3 +1071,142 @@ def test_chase_probe_equals_plain_on_card(cuda_device, cls, p):
     torch.cuda.synchronize()
     assert probes.launches["probe_pass"] == 1
     assert torch.equal(got, want)
+
+
+# ---- svt_minplus, the dense (min,+) product ----------------------------
+
+
+def _minplus_mat(rng, shape, device):
+    """Integer values in [0, 3] (ties everywhere), ~20% +inf, and every
+    fifth row of the second axis all +inf."""
+    x = rng.integers(0, 4, size=shape).astype(np.float32)
+    x[rng.uniform(size=shape) < 0.2] = np.inf
+    if len(shape) == 3:
+        x[:, ::5] = np.inf
+    return torch.as_tensor(x, device=device)
+
+
+def _minplus_a(rng, layout, g, i, k, device):
+    """``(a, a_idx)`` in one of the layouts the decoder and the specializer
+    hand the kernel: own operators, one shared operator, a transposed
+    view (stride_i = 1), gathered through an index vector with repeats."""
+    if layout == "own":
+        return _minplus_mat(rng, (g, i, k), device), None
+    if layout == "shared":
+        return _minplus_mat(rng, (1, i, k), device), None
+    if layout == "tn_view":
+        return _minplus_mat(rng, (1, k, i), device)[0].T[None], None
+    idx = torch.as_tensor(rng.integers(0, 7, size=g), device=device)
+    return _minplus_mat(rng, (7, i, k), device), idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argmin", [False, True])
+@pytest.mark.parametrize("layout", ["own", "shared", "tn_view", "gathered"])
+@pytest.mark.parametrize("g,i,k,j", [(1, 2432, 2432, 56), (3, 67, 131, 37), (2, 100, 45, 1),
+                                     (5, 1, 17, 3), (2, 129, 1000, 65), (4, 300, 33, 1),
+                                     (2, 200, 700, 9), (1, 64, 0, 5)])
+def test_minplus_equals_plain_on_card(cuda_device, argmin, layout, g, i, k, j):
+    """Both layouts of A, the gathered form and the argmin arm, with ties
+    and all-inf rows, I, J and K off every tile multiple (64 x 64 and
+    64 x 16 tiles, k stages of 16, K split over CTAs and merged; J = 1
+    takes the row arm; K = 0 gives +inf and 0): bit-equal."""
+    rng = np.random.default_rng(g * 7 + i + k + j)
+    a, idx = _minplus_a(rng, layout, g, i, k, cuda_device)
+    b = _minplus_mat(rng, (g, k, j), cuda_device)
+    tropical.reset_launches()
+    got = tropical.minplus(a, b, idx, argmin=argmin)
+    want = tropical.minplus_plain(a, b, idx, argmin=argmin)
+    torch.cuda.synchronize()
+    assert tropical.launches == {"minplus": 1}
+    shape = tropical.minplus_shape(g, i, k, j, cuda_device)
+    assert (shape["splits"] > 1) == ((g, i, k, j) in ((1, 2432, 2432, 56), (3, 67, 131, 37),
+                                                      (2, 129, 1000, 65), (2, 200, 700, 9)))
+    if argmin:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_minplus_offsets_past_2_31_on_card(cuda_device):
+    """An index vector into a stack of 2^31 + 2^19 elements (8.6 GB): the
+    last two operators start at and past 2^31 elements, so 32-bit offsets
+    would read the wrong memory."""
+    i, k = 64, 4096
+    ga = 2**31 // (i * k) + 2
+    a = torch.empty((ga, i, k), device=cuda_device)
+    rng = np.random.default_rng(31)
+    sel = [ga - 1, 3, ga - 2]
+    for s in sel:
+        a[s] = _minplus_mat(rng, (i, k), cuda_device)
+    idx = torch.tensor(sel, device=cuda_device)
+    assert (ga - 1) * i * k > 2**31
+    for j in (1, 5):
+        b = _minplus_mat(rng, (len(sel), k, j), cuda_device)
+        for argmin in (False, True):
+            got = tropical.minplus(a, b, idx, argmin=argmin)
+            want = tropical.minplus_plain(a, b, idx, argmin=argmin)
+            torch.cuda.synchronize()
+            if argmin:
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            else:
+                assert torch.equal(got, want)
+    del a
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_minplus_wrapper_checks_inputs(cuda_device):
+    a = torch.zeros((1, 8, 9), device=cuda_device)
+    b = torch.zeros((2, 9, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tropical.minplus(a.double(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tropical.minplus(a, b.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="K ="):
+        tropical.minplus(a[:, :, :5], b)
+    with pytest.raises(ValueError, match="a_idx"):
+        tropical.minplus(a, b, torch.zeros(2, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="operators"):
+        tropical.minplus(torch.zeros((3, 8, 9), device=cuda_device), b)
+    with pytest.raises(ValueError, match="out"):
+        tropical.minplus(a, b, out=torch.empty((2, 4, 8), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_dense_mode_and_specializer_go_through_minplus(cuda_device):
+    """The dense decoder and the level-2 specializer on the card: every
+    product launches svt_minplus, no fused kernel runs, and the results
+    equal the CPU's (the plain version) and the oracles bit for bit."""
+    hmm = generate_random_hmm(200, trans_per_state=60, emit_range=5, seed=4)
+    dec = ViterbiDecoder(hmm, mode="auto", device=cuda_device)
+    cpu = ViterbiDecoder(hmm, mode="dense", device="cpu")
+    assert dec.mode == "dense"
+    rng = np.random.default_rng(4)
+    seqs = _seqs(rng, [1, 2, 40, 17, 33, 60, 5, 9, 12, 50, 44], hmm.emit_num)
+    tropical.reset_launches()
+    fused.reset_launches()
+    got = dec.decode_batch(seqs)
+    paths = dec.decode_path_batch(seqs[:3])
+    one = dec.decode(seqs[3])
+    assert tropical.launches["minplus"] > 0 and not any(fused.launches.values())
+    for g, c, s in zip(got, cpu.decode_batch(seqs), seqs):
+        np.testing.assert_array_equal(g, c)
+        np.testing.assert_array_equal(g, viterbi_scores_oracle(hmm, s))
+    for (sc, p), s in zip(paths, seqs):
+        want_sc, want_p = viterbi_path_oracle(hmm, s)
+        np.testing.assert_array_equal(sc, want_sc)
+        np.testing.assert_array_equal(p, want_p)
+    np.testing.assert_array_equal(one, got[3])
+    with pytest.warns(UserWarning, match="level=1"):
+        spec = SpecializedViterbi(level=2, device=cuda_device)
+        spec.spec_with(hmm)
+    with pytest.warns(UserWarning):
+        spec_cpu = SpecializedViterbi(level=2, device="cpu")
+        spec_cpu.spec_with(hmm)
+    assert torch.equal(spec.tuple_ops.cpu(), spec_cpu.tuple_ops)
+    for g, c, s in zip(spec.run_spec_batch(seqs), spec_cpu.run_spec_batch(seqs), seqs):
+        np.testing.assert_array_equal(g, c)
+        assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
+    np.testing.assert_array_equal(spec.run_spec(seqs[5]), spec_cpu.run_spec(seqs[5]))
