@@ -25,15 +25,18 @@ exits non-zero:
 7. hold the plain path and both scores kernels against the numpy oracle on
    4 lanes × 64 symbols: bit-equal;
 8. ``path_main``: ``decode_path_batch`` on both sets (the planned arm of
-   the path kernel and the backtrace kernel, 2 uniform calls of 256 lanes
-   and one per ragged bucket) and ``decode_path`` on one sequence (the
+   the path kernel and the backtrace kernel, the uniform set in calls of
+   as many lanes as the pointer budget holds, a quarter of the card's
+   memory, and one per ragged bucket; the expected counts come from the
+   budget) and ``decode_path`` on one sequence (the
    plain argmin scan on the card), with the launch counts read around
    that run; paths of the right length and range, scores equal to the
-   scores flow's;
+   scores flow's; then the uniform set again under a budget lowered to
+   half of it: two lane-chunked calls, equal to the main run;
 9. ``path_kernel_vs_plain``: both arms of the path kernel against their
    plain versions and each other (carry and backpointers) and the
-   backtrace kernel against its plain version, at one 256-lane uniform
-   call (unmasked) and at the largest ragged bucket (masked);
+   backtrace kernel against its plain version, at one uniform call
+   (unmasked; 512 lanes where the budget holds them) and at the largest ragged bucket (masked);
 10. ``path_oracle``: paths and scores against ``viterbi_path_oracle`` on a
     prefix of both sets (planned arm) and on a seeded tie-heavy model
     (generic arm): bit-equal;
@@ -128,7 +131,7 @@ exits non-zero:
     probe kernel against its plain version on a 64-step slice, every
     class, scheme and flag, bit-equal;
 23. time kernel and plain version of the scores kernels at the uniform
-    shape and the path kernels at one 256-lane call (median of 5; the
+    shape and the path kernels at one uniform path call (median of 5; the
     plain path scans on fewer repeats, as their lines say), each arm of
     the masked and path kernels on its own line; both arms of the masked
     and path kernels and the backtrace kernel at each ragged bucket; then
@@ -137,6 +140,28 @@ exits non-zero:
     their bounds (the generic arms on the same calls, marked as off the
     corpus model's main path). The FS kernel's and the backtrace's
     ``time``, ``rank`` and ``kernels`` entries carry their chain floors.
+24. ``spec_struct``: ``StructuredSpecializedViterbi(level=2)`` on the
+    corpus model: the factored form (the fused decoder) through
+    ``run_spec_batch`` on both sets and ``run_spec`` on one sequence, with
+    the launch counts read around that run (one FS launch a uniform call,
+    one planned masked launch a ragged bucket), bit-equal to
+    ``decode_batch``; then the composed form (``use_kernels=False``, plain
+    PyTorch, no kernel) on 8 uniform and 4 ragged lanes: within ±1.0 of the
+    dense scores and bit-equal to the same composed code on the CPU; the
+    host seconds of each form on those lanes;
+25. ``bench``: the headline line (``spec_viterbi_tpu_torch.bench.headline``,
+    the entry point's default inputs: this model and the first 50 uniform
+    sequences) at full size: 16 pre-staged batches of 512 x 3,500, the
+    dense baseline, the ``empty`` floor at 2,432 x 512, the bit-equality
+    gate;
+26. ``bench_sweep``: both ``.dat`` sweeps (``bench/bench_viterbi.py``)
+    over this model and a 502-state profile model on the 50 sequences,
+    2 timed runs a cell, the spec sweep's prep once; NaN exactly where the
+    8 GB memory policy says;
+27. ``bench_ragged``: the ragged bench (``bench/bench_ragged.py``) on this
+    model with the ragged set's lengths, both path columns with their
+    peak allocated memory against the pointer budget (``path_peak``
+    lines).
 
 Every ``kernels`` entry carries its bound (``spec_viterbi_tpu_torch/
 probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
@@ -189,6 +214,11 @@ TP_PLAIN_CHUNKS = 4  # chunks of the kernel-vs-plain checks and timings
 TP_EMULATED_LANES = 128
 DP_PATH_LANES = 128
 SPAWN_SECONDS = 600
+STRUCT_LEVEL = 2  # the structured specializer's level in spec_struct
+STRUCT_COMPOSED_UNIFORM, STRUCT_COMPOSED_RAGGED = 8, 4  # lanes of the composed form's prefix
+SWEEP_SMALL_MATCH = 500  # the sweeps' second model: 502 states
+SWEEP_TIMES = 2  # timed runs a sweep cell (the reference takes 10)
+RAGGED_TIMES = 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -1105,6 +1135,138 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> tuple[
     return kernels, floors
 
 
+def struct_and_bench(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_r, plan) -> None:
+    """The phases ``spec_struct``, ``bench``, ``bench_sweep`` and
+    ``bench_ragged`` on the corpus model ``hmm``. ``scores_u`` ([512, n] on
+    the card) and ``scores_r`` are the structured main path's uniform and
+    ragged scores (bit-equal to the dense scores, ``dense_main``), ``plan``
+    the ragged set's bucket plan."""
+    import torch
+
+    from spec_viterbi_tpu_torch import SpecializedViterbi, StructuredSpecializedViterbi, almost_equal_vec
+    from spec_viterbi_tpu_torch.bench import bench_ragged, bench_viterbi, harness, headline
+    from spec_viterbi_tpu_torch.io import generate_profile_hmm, write_chmm, write_ess
+    from spec_viterbi_tpu_torch.ops import _build, fused
+
+    dev = torch.device("cuda")
+    n_real = hmm.states_num
+    u_np = scores_u.cpu().numpy()[:, :n_real]
+
+    # ---- spec_struct: the factored form on the kernels, then the composed
+    # form on the card and on the CPU ----------------------------------------
+    t0 = time.perf_counter()
+    spec = StructuredSpecializedViterbi(level=STRUCT_LEVEL, device=dev)
+    spec.spec_with(hmm)
+    secs = {"spec_with": time.perf_counter() - t0}
+    check(spec._fused is not None and spec._fused._fs_ok, "the factored form takes the fused kernels, FS class")
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    got_u = spec.run_spec_batch(uniform)
+    secs["uniform_run_spec_batch"] = time.perf_counter() - t0
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_fs": 1}, "the uniform set ran the FS kernel")
+    t0 = time.perf_counter()
+    got_r = spec.run_spec_batch(ragged)
+    secs["ragged_run_spec_batch"] = time.perf_counter() - t0
+    check(fused.launches == {**ZERO_LAUNCHES, "scores_fs": 1, "scores_masked_planned": len(plan)},
+          "every ragged bucket ran the planned arm of the masked kernel")
+    got_1 = spec.run_spec(uniform[0])
+    counts = dict(fused.launches)
+    check(counts == {**ZERO_LAUNCHES, "scores_fs": 2, "scores_masked_planned": len(plan)},
+          "run_spec of one sequence ran the FS kernel")
+    check(all(np.array_equal(g, u_np[i]) for i, g in enumerate(got_u)), "factored uniform == decode_batch")
+    check(all(np.array_equal(g, w) for g, w in zip(got_r, scores_r)), "factored ragged == decode_batch")
+    check(np.array_equal(got_1, u_np[0]), "factored run_spec == lane 0")
+
+    comp = StructuredSpecializedViterbi(level=STRUCT_LEVEL, use_kernels=False, device=dev)
+    t0 = time.perf_counter()
+    comp.spec_with(hmm)
+    secs["composed_spec_with"] = time.perf_counter() - t0
+    check(comp._fused is None, "use_kernels=False pins the composed form")
+    prefix = uniform[:STRUCT_COMPOSED_UNIFORM] + ragged[:STRUCT_COMPOSED_RAGGED]
+    want = list(u_np[:STRUCT_COMPOSED_UNIFORM]) + scores_r[:STRUCT_COMPOSED_RAGGED]
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    got_c = comp.run_spec_batch(prefix)
+    secs["composed_run_spec_batch"] = time.perf_counter() - t0
+    check(not any(fused.launches.values()), "the composed form launches no fused kernel")
+    t0 = time.perf_counter()
+    spec.run_spec_batch(prefix)
+    secs["factored_run_spec_batch_same_lanes"] = time.perf_counter() - t0
+    diffs = [float(np.abs(g.astype(np.float64) - w)[np.isfinite(g) & np.isfinite(w)].max(initial=0.0))
+             for g, w in zip(got_c, want)]
+    check(all(almost_equal_vec(g, w) for g, w in zip(got_c, want)),
+          f"composed level-{STRUCT_LEVEL} within 1.0 of the dense scores (largest difference {max(diffs)})")
+    cpu = StructuredSpecializedViterbi(level=STRUCT_LEVEL, use_kernels=False, device="cpu")
+    cpu.spec_with(hmm)
+    t0 = time.perf_counter()
+    got_cpu = cpu.run_spec_batch(prefix)
+    secs["composed_cpu_run_spec_batch"] = time.perf_counter() - t0
+    check(all(np.array_equal(g, c) for g, c in zip(got_c, got_cpu)), "composed on the card == on the CPU")
+    phase("spec_struct", states=n_real, level=STRUCT_LEVEL, seconds=secs, launches=counts,
+          tuple_components=comp.num_components, tuple_offsets=list(comp.tuple_offsets),
+          composed_lanes=[len(s) for s in prefix], composed_stack_bytes=sum(
+              int(a.numel()) * 4 for a in comp.arrays),
+          largest_difference_to_dense=max(diffs), composed_card_equals_cpu=True)
+    del spec, comp, cpu
+    torch.cuda.empty_cache()
+
+    # ---- bench: the headline line, the entry point's default inputs (the
+    # same model and the first 50 uniform sequences) -------------------------
+    t0 = time.perf_counter()
+    b_hmm, b_seqs, model, work = headline.load_inputs(None, None, seed)
+    check(b_hmm.fingerprint() == hmm.fingerprint()
+          and all(np.array_equal(a, b) for a, b in zip(b_seqs, uniform)),
+          "the headline's default inputs are this run's model and uniform prefix")
+    line = headline.run(b_hmm, b_seqs, device=dev, model=f"{model}; {work}", seed=seed)
+    phase("bench", seconds=time.perf_counter() - t0, **line)
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        write_chmm(hmm, f"{tmp}/{n_real}.chmm")
+        small = generate_profile_hmm(SWEEP_SMALL_MATCH, seed=seed)
+        write_chmm(small, f"{tmp}/{small.states_num}.chmm")
+        write_ess(b_seqs, f"{tmp}/work.ess")
+        write_ess(ragged, f"{tmp}/ragged.ess")
+
+        # ---- bench_sweep: both .dat sweeps over the two models -------------
+        t0 = time.perf_counter()
+        nonspec = bench_viterbi.benchmark_viterbi_impls_to_dat_file(
+            tmp, f"{tmp}/work.ess", f"{tmp}/nonspec.dat", times_to_run=SWEEP_TIMES, device=dev)
+        nonspec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spec_rows = bench_viterbi.benchmark_viterbi_spec_impls_to_dat_file(
+            tmp, f"{tmp}/work.ess", f"{tmp}/spec.dat", times_to_run=SWEEP_TIMES, prep_times_to_run=1,
+            struct_levels=bench_viterbi.ARTIFACT_STRUCT_LEVELS, device=dev)
+        spec_s = time.perf_counter() - t0
+        with open(f"{tmp}/nonspec.dat") as f:
+            check(f.readline().rstrip("\n").split("\t") == bench_viterbi.nonspec_headers(), "nonspec headers")
+        with open(f"{tmp}/spec.dat") as f:
+            spec_cols = f.readline().rstrip("\n").split("\t")
+        check(spec_cols == bench_viterbi.spec_headers(), "spec headers")
+        check(sorted(nonspec) == sorted(spec_rows) == sorted([n_real, small.states_num]), "one row a model")
+        for states, row in spec_rows.items():
+            for col, t in zip(spec_cols[1:], row):
+                name, level = col.removesuffix("_prep").rsplit("_", 1)
+                cls = StructuredSpecializedViterbi if name == "spec_struct" else SpecializedViterbi
+                over = cls.spec_memory_bytes(states, hmm.emit_num, int(level)) > (8 << 30)
+                check(np.isnan(t) == over, f"{states} states {col}: NaN only over the memory budget")
+        phase("bench_sweep", card=card, seconds={"nonspec": nonspec_s, "spec": spec_s},
+              times_to_run=SWEEP_TIMES, prep_times_to_run=1, lanes=len(b_seqs),
+              nonspec={"headers": bench_viterbi.nonspec_headers(), "rows_ms": nonspec},
+              spec={"headers": spec_cols, "rows_ms": {k: [None if np.isnan(t) else t for t in v]
+                                                      for k, v in spec_rows.items()}},
+              sums={k: None if np.isnan(v) else v
+                    for k, v in harness.sum_dat_columns(f"{tmp}/spec.dat").items()})
+
+        # ---- bench_ragged: the corpus model on the ragged set's lengths ----
+        t0 = time.perf_counter()
+        states, row = bench_ragged.benchmark_ragged(f"{tmp}/{n_real}.chmm", f"{tmp}/ragged.ess", copies=1,
+                                                    times_to_run=RAGGED_TIMES, device=dev)
+        check(all(np.isfinite(row)), "every ragged column ran (both path columns within the budget)")
+        phase("bench_ragged", card=card, seconds=time.perf_counter() - t0, states=states, lanes=len(ragged),
+              times_to_run=RAGGED_TIMES, headers=list(bench_ragged.HEADERS), row_ms=row,
+              path_budget_bytes=fused.path_budget_bytes(dev))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the model and the sequences")
@@ -1272,10 +1434,23 @@ def main() -> int:
           "ragged path scores == decode_batch scores")
     check(np.array_equal(path_1[0], paths_u[0][0]) and np.array_equal(path_1[1], paths_u[0][1]),
           "decode_path (plain scan) == lane 0 of decode_path_batch")
-    phase("path_main", seconds=psecs, launches=path_counts, calls=want_calls)
+    # the lane-chunk loop: with the budget lowered to half the uniform set,
+    # it takes two calls, stitched back by lane, equal to the run above
+    budget_bytes = fd.MAX_PATH_BYTES
+    fd.MAX_PATH_BYTES = (T_LEN - 1) * fd.n * 2 * (LANES // 2)
+    chunk_calls = -(-LANES // budget(T_LEN))
+    fused.reset_launches()
+    paths_c = dec.decode_path_batch(uniform)
+    chunk_counts = dict(fused.launches)
+    fd.MAX_PATH_BYTES = budget_bytes
+    check(chunk_calls == 2 and chunk_counts == {**ZERO_LAUNCHES, "path_planned": 2, "backtrace": 2},
+          "the lowered budget split the uniform set into two path calls")
+    check(all(np.array_equal(c[0], u[0]) and np.array_equal(c[1], u[1]) for c, u in zip(paths_c, paths_u)),
+          "two lane-chunked path calls == the main path's uniform paths and scores")
+    phase("path_main", seconds=psecs, launches=path_counts, calls=want_calls, chunked_calls=chunk_calls)
 
     # ---- the path kernels against their plain versions -----------------
-    half = budget(T_LEN)
+    half = min(LANES, budget(T_LEN))  # the lanes of a uniform path call under the budget
     big_idx, big_t = max(plan, key=lambda e: e[1])
     err_path = {"path_planned": 0.0, "path": 0.0}
     err_bt = 0.0
@@ -1540,6 +1715,8 @@ def main() -> int:
                   "on_corpus_main_path": on_main.get(name, True),
                   **({"chain_floor_ms": call_floor[name]} if name in call_floor else {})}
                  for name, n, ms, b, loss in rank])
+
+    struct_and_bench(args.seed, card, hmm, uniform, ragged, scores_u, scores_r, plan)
 
     # launches: the planned arms' from the corpus model's main path, the
     # generic arms' from generic_main's

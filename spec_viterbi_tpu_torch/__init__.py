@@ -11,6 +11,7 @@ from spec_viterbi_tpu_torch.io import read_emit_seq, read_hmm
 from spec_viterbi_tpu_torch.models import (
     DeviceHMM,
     SpecializedViterbi,
+    StructuredSpecializedViterbi,
     ViterbiDecoder,
     viterbi_path_oracle,
     viterbi_scores_oracle,
@@ -28,6 +29,7 @@ __all__ = [
     "DeviceHMM",
     "ViterbiDecoder",
     "SpecializedViterbi",
+    "StructuredSpecializedViterbi",
     "OperatorCache",
     "StructuredOperator",
     "viterbi_path_oracle",

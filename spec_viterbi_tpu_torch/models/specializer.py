@@ -66,6 +66,13 @@ def _add_level(ops: torch.Tensor, t_prev: torch.Tensor) -> torch.Tensor:
     return t_next
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of the host array ``arr`` on ``device``. ``torch.tensor``
+    always copies, so a cache load's read-only memmap is taken as it is,
+    and the host array is never shared with the tensor."""
+    return torch.tensor(arr, device=device)
+
+
 def make_chunked_decode(level: int, emit_num: int, start_fn, chunk_fn, tail_fn, operands=None):
     """The chunked-decode skeleton: ``seq[0]`` takes the start operator;
     the remaining T−1 symbols go ``level`` at a time through
@@ -183,10 +190,10 @@ class SpecializedViterbi:
             cached = self.cache.load(hmm.fingerprint(), self.level, np_states, kind="dense")
         # entries without "ops_id" predate the identity padding symbol
         if cached is not None and "ops_id" in cached:
-            start_ops = self._upload(cached["start_ops"])
-            ops = self._upload(cached["ops_id"])
+            start_ops = to_device(cached["start_ops"], self.device)
+            ops = to_device(cached["ops_id"], self.device)
             # level 1's tuple_ops are the level-1 ops (not stored twice)
-            tuple_ops = self._upload(cached["tuple_ops"]) if "tuple_ops" in cached else ops
+            tuple_ops = to_device(cached["tuple_ops"], self.device) if "tuple_ops" in cached else ops
         else:
             a_t = torch.as_tensor(hmm.transposed_transition_matrix(pad_to=np_states), device=self.device)
             pi = torch.as_tensor(hmm.start_vector(pad_to=np_states), device=self.device)
@@ -212,19 +219,14 @@ class SpecializedViterbi:
         )
         self._specialized = True
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        # a cache load is a read-only memmap: copy it before torch sees it
-        return torch.from_numpy(np.array(arr)).to(self.device)
-
-    def _decode_batch_uniform(self, batch: np.ndarray) -> torch.Tensor:
-        """The batched chunked decode of ``batch`` [B, T] (one length, padded
-        with the identity symbol) → [B, n] on the device. The carry is
-        lane-major, and each chunk step is one gathered product: lane ``b``
-        applies ``tuple_ops[idx[b]]``, read in place through the kernel's
-        index vector (no [B, n, n] gather)."""
+    def _stage_uniform(self, batch: np.ndarray):
+        """The device inputs of :meth:`_decode_staged` for ``batch`` [B, T]
+        (one length, padded with the identity symbol): the first symbols
+        [B] and, per run of steps, the operator stack with each step's
+        tuple indices [steps, B]."""
         level, radix = self.level, self.emit_num + 1
         dev = self.start_ops.device
-        v = self.start_ops[torch.as_tensor(batch[:, 0].astype(np.int64), device=dev)]  # [B, n]
+        first = torch.as_tensor(batch[:, 0].astype(np.int64), device=dev)
         rest = batch[:, 1:].astype(np.int64)
         n_full = rest.shape[1] // level
         steps = []
@@ -233,11 +235,42 @@ class SpecializedViterbi:
             idxs = chunks @ radix ** np.arange(level, dtype=np.int64)  # [B, n_full]
             steps.append((self.tuple_ops, idxs))
         steps.append((self.ops, rest[:, n_full * level :]))
-        for ops, idxs in steps:
-            idxs_d = torch.as_tensor(np.ascontiguousarray(idxs.T), device=dev)  # [steps, B]
+        return first, [
+            (ops, torch.as_tensor(np.ascontiguousarray(idxs.T), device=dev))  # [steps, B]
+            for ops, idxs in steps
+        ]
+
+    def _decode_staged(self, staged) -> torch.Tensor:
+        """The batched chunked decode of a staged batch → [B, n] on the
+        device. The carry is lane-major, and each chunk step is one
+        gathered product: lane ``b`` applies ``tuple_ops[idx[b]]``, read in
+        place through the kernel's index vector (no [B, n, n] gather)."""
+        first, steps = staged
+        v = self.start_ops[first]  # [B, n]
+        for ops, idxs_d in steps:
             for c in range(idxs_d.shape[0]):
                 v = tropical.minplus(ops, v[:, :, None], a_idx=idxs_d[c])[:, :, 0]
         return v
+
+    def _decode_batch_uniform(self, batch: np.ndarray) -> torch.Tensor:
+        """The batched chunked decode of ``batch`` [B, T] (one length,
+        padded with the identity symbol) → [B, n] on the device."""
+        return self._decode_staged(self._stage_uniform(batch))
+
+    def _padded_groups(self, seqs: list[np.ndarray]) -> list[tuple[list[int], np.ndarray]]:
+        """Validated sequences grouped by quantized length (``quantize_t``),
+        each group ``(indices, batch [b, t_q])`` padded with the identity
+        symbol, as the JAX package groups them."""
+        by_tq: dict[int, list[int]] = {}
+        for i, s in enumerate(seqs):
+            by_tq.setdefault(quantize_t(len(s)), []).append(i)
+        groups = []
+        for t_q, idxs in sorted(by_tq.items()):
+            batch = np.full((len(idxs), t_q), self.emit_num, np.int32)
+            for j, i in enumerate(idxs):
+                batch[j, : len(seqs[i])] = seqs[i]
+            groups.append((idxs, batch))
+        return groups
 
     def run_spec(self, seq: np.ndarray) -> np.ndarray:
         """``run_Viterbi_spec`` parity: final score vector for one sequence."""
@@ -272,13 +305,7 @@ class SpecializedViterbi:
         if any(len(s) == 0 for s in seqs):
             raise ValueError("cannot decode an empty sequence")
         out: list[np.ndarray | None] = [None] * len(seqs)
-        by_tq: dict[int, list[int]] = {}
-        for i, s in enumerate(seqs):
-            by_tq.setdefault(quantize_t(len(s)), []).append(i)
-        for t_q, idxs in sorted(by_tq.items()):
-            batch = np.full((len(idxs), t_q), self.emit_num, np.int32)
-            for j, i in enumerate(idxs):
-                batch[j, : len(seqs[i])] = seqs[i]
+        for idxs, batch in self._padded_groups(seqs):
             v = self._decode_batch_uniform(batch)[:, : self.states_num].cpu().numpy()
             for j, i in enumerate(idxs):
                 out[i] = v[j]

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spec_viterbi_tpu_torch.ops.fused import _StreamAPI, backtrace_plain, model_key
+from spec_viterbi_tpu_torch.ops.fused import _StreamAPI, backtrace_plain, model_key, path_budget_bytes
 from spec_viterbi_tpu_torch.ops.structured import (
     StructuredOperator,
     structured_path_batch,
@@ -30,10 +30,6 @@ from spec_viterbi_tpu_torch.ops.structured import (
 class PlainStreamDecoder(_StreamAPI):
     """Streaming engine on the plain structured scan; any operator, any
     device (the counterpart of the JAX package's ``XLAStreamDecoder``)."""
-
-    # one [T_q, B, n] int32 backpointer block materializes per finalize
-    # chunk; capped like the fused engine's int16 tensor
-    MAX_PATH_BYTES = 6 << 30
 
     def __init__(
         self,
@@ -54,6 +50,9 @@ class PlainStreamDecoder(_StreamAPI):
         )  # [n, E]
         self.pi = torch.as_tensor(np.asarray(pi, np.float32), device=self.device)
         self._model_key = model_key("torch-plain", sop, emissions, pi)
+        # one [T_q, B, n] int32 backpointer block materializes per finalize
+        # chunk, under the fused engine's budget
+        self.MAX_PATH_BYTES = path_budget_bytes(self.device)
 
     def path_supported(self, t_max: int, batch: int = 1) -> bool:
         """Whether one finalize block of this shape fits the pointer budget."""

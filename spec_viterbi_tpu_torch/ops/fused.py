@@ -94,6 +94,28 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+# The share of a device's memory that one path call's backpointer tensor
+# may take. The rest holds the operator tables and carries, the caller's
+# other tensors (a dense level-2 stack takes 10.43 GB at 2,432 states), a
+# check against the plain version (a second pointer tensor) and the
+# allocator's slack. On an 80 GB card one call holds 1,152 lanes of
+# 3,500 symbols at 2,432 states.
+PATH_MEMORY_SHARE = 0.25
+# The budget on the CPU: a constant, so that a CPU decode chunks its lanes
+# the same way on every host.
+CPU_PATH_BYTES = 6 << 30
+
+
+def path_budget_bytes(device: torch.device | str) -> int:
+    """The pointer budget of one path call on ``device``:
+    ``PATH_MEMORY_SHARE`` of a CUDA device's ``total_memory``, and
+    ``CPU_PATH_BYTES`` on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_PATH_BYTES
+    return int(torch.cuda.get_device_properties(device).total_memory * PATH_MEMORY_SHARE)
+
+
 def _plan_uniform_cols(sop: StructuredOperator):
     """Collapse near-uniform dense columns into ONE shared masked reduce.
 
@@ -1124,6 +1146,9 @@ class FusedStructuredDecoder(_StreamAPI):
         self._scores_arm = self._masked if self._fs is None else self._fs
         self._path_arm = self._masked if self._fs is None or n % 2 else self._fs
         self._model_key = model_key("torch-fused", sop, emissions, pi)
+        # the memory budget of one path call's int16 backpointer tensor;
+        # the tests set it lower to force lane chunks and refusals
+        self.MAX_PATH_BYTES = path_budget_bytes(self.device)
 
     def _scores_core(self, seqs_t, lengths, masked: bool) -> torch.Tensor:
         """State-major fused decode: [T, B] symbols → [n, B] scores."""
@@ -1208,11 +1233,6 @@ class FusedStructuredDecoder(_StreamAPI):
             scores = scores[:b_real, : self.states_num]
             paths = paths[:b_real]
         return scores, paths.to(torch.int16)
-
-    # Device-memory budget of one call's int16 backpointer tensor. The JAX
-    # package's value, a budget sized for a TPU's HBM; kept so that both
-    # packages chunk a batch the same way.
-    MAX_PATH_BYTES = 6 << 30
 
     def path_supported(self, t_max: int, batch: int = BB) -> bool:
         """Whether ONE fused path call of this shape fits the budget.

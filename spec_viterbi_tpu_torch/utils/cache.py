@@ -11,7 +11,8 @@ Format (v3): one directory per ``(kind, hmm fingerprint, level, padded
 size)`` holding one ``.npy`` per array. Loads are memory-mapped and
 read-only (copy them before handing them to torch). Stores are atomic:
 arrays are written into a temp directory that is renamed into place (a
-concurrent writer losing the race discards its copy).
+concurrent writer losing the race discards its copy); ``store_async``
+publishes from a background thread.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import os
 import re
 import shutil
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -86,6 +88,23 @@ class OperatorCache:
         except Exception:
             shutil.rmtree(path, ignore_errors=True)
             return None
+
+    def store_async(
+        self, fingerprint: str, level: int, padded: int, arrays: dict,
+        kind: str = "dense",
+    ) -> threading.Thread:
+        """:meth:`store` in a background thread, so a large write does not
+        add to a cold ``spec_with``. The atomic publish means a process
+        exiting mid-write leaves only a discarded temp directory, never a
+        corrupt entry. The arrays are only read, so the caller may keep
+        using them; join the returned thread to wait for the publish."""
+        t = threading.Thread(
+            target=self.store,
+            args=(fingerprint, level, padded, arrays, kind),
+            daemon=True,
+        )
+        t.start()
+        return t
 
     def store(
         self, fingerprint: str, level: int, padded: int, arrays: dict,

@@ -13,6 +13,7 @@ import torch
 
 from spec_viterbi_tpu_torch import (
     SpecializedViterbi,
+    StructuredSpecializedViterbi,
     ViterbiDecoder,
     almost_equal_vec,
     viterbi_path_oracle,
@@ -1210,3 +1211,42 @@ def test_dense_mode_and_specializer_go_through_minplus(cuda_device):
         np.testing.assert_array_equal(g, c)
         assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
     np.testing.assert_array_equal(spec.run_spec(seqs[5]), spec_cpu.run_spec(seqs[5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [2, 3])
+def test_structured_specializer_on_card(cuda_device, level):
+    """The structured specializer on the card: the factored form runs the
+    fused kernels (FS for a uniform batch, the planned masked arm a ragged
+    bucket) and equals the non-specialized decode and the oracle bit for
+    bit; the composed form launches none and equals the same composed code
+    on the CPU bit for bit."""
+    hmm = generate_profile_hmm(90, seed=level)
+    rng = np.random.default_rng(level)
+    ragged = _seqs(rng, [1, 2, 40, 17, 33, 60, 5, 9, 12, 50, 44, 3], hmm.emit_num)
+    uniform = _seqs(rng, [48] * 5, hmm.emit_num)
+    spec = StructuredSpecializedViterbi(level=level, device=cuda_device)
+    spec.spec_with(hmm)
+    dec = ViterbiDecoder(hmm, mode="structured", device=cuda_device)
+    assert spec._fused is not None and spec._fused._fs_ok
+    fused.reset_launches()
+    got_u = spec.run_spec_batch(uniform)
+    assert fused.launches["scores_fs"] == 1 and fused.launches["scores_masked_planned"] == 0
+    got_r = spec.run_spec_batch(ragged)
+    assert fused.launches["scores_masked_planned"] == 1
+    for g, w, s in zip(got_u + got_r, dec.decode_batch(uniform) + dec.decode_batch(ragged),
+                       uniform + ragged):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, viterbi_scores_oracle(hmm, s))
+    comp = StructuredSpecializedViterbi(level=level, use_kernels=False, device=cuda_device)
+    comp.spec_with(hmm)
+    cpu = StructuredSpecializedViterbi(level=level, device="cpu")
+    cpu.spec_with(hmm)
+    assert comp._fused is None and cpu._fused is None
+    fused.reset_launches()
+    got_c = comp.run_spec_batch(ragged)
+    assert not any(fused.launches.values())
+    for g, c, s in zip(got_c, cpu.run_spec_batch(ragged), ragged):
+        np.testing.assert_array_equal(g, c)
+        assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
+    np.testing.assert_array_equal(comp.run_spec(ragged[2]), got_c[2])
