@@ -64,14 +64,20 @@ exits non-zero:
     (``prepare_batch``/``run_batch``), ``decode_batch`` of the first 50
     ragged sequences, ``decode`` and ``decode_path`` of one, with the
     ``svt_minplus`` and fused launch counts read around that run (no fused
-    kernel); dense scores bit-equal to step 5's (the FS kernel's and the
+    kernel; ``run_batch`` one ``svt_minplus`` launch a step, no other
+    device kernel in its loop under ``torch.profiler`` and no allocation
+    in it); dense scores bit-equal to step 5's (the FS kernel's and the
     masked kernel's) and the dense path to lane 0 of step 8's; ``auto``
     resolving to dense on a seeded dense-class model (1,024 states, 256
     transitions a state), held to the oracle on 4 x 64;
 14. ``dense_kernel_vs_plain``: ``svt_minplus`` against ``minplus_plain``
     on one full dense batch step, a 64-step prefix of ``run_batch``, the
-    J = 1 argmin arm and ragged-edge shapes (both layouts, gathered):
-    bit-equal;
+    J = 1 argmin arm and ragged-edge shapes (both layouts, gathered), then
+    at pinned cluster sizes 1, 2 and 8 (all-inf rows, a K too short for
+    the cluster); the one-launch step (``dense_step``) with ``t`` at a
+    lane's length, 64-step prefixes of the new loop against the plain loop
+    (uniform; lanes frozen at 0-64 steps), and the J = 1 step writing its
+    argmin into a pointer row (``dense_step_mv``): bit-equal;
 15. ``spec_main``: ``SpecializedViterbi(level=1)`` delegating to the fused
     decoder (``svt_scores_fs``), then level 2: the slowdown warning,
     ``spec_with`` (441 products, a 10.43 GB stack; peak device memory),
@@ -79,7 +85,9 @@ exits non-zero:
     ``run_spec`` of one, within ±1.0 of the dense scores (the largest
     difference printed), 4 of the products and a 16-chunk prefix of the
     gathered decode held to the plain version; then ``svt_minplus``'s
-    ``time`` lines (the dense ``run_batch``, the J = 1 step with and
+    ``time`` lines (the dense ``run_batch`` with the kernel's device µs a
+    launch in the decoder's loop, the host's µs a step, the idle share,
+    tile, thread tile, cluster and stages; the J = 1 step with and
     without argmin, the level-2 build, the gathered level-2 decode of 50
     x 1,749 chunks), each beside its bound and held to it (neither its
     event time nor its device time may read below it: the J = 1 lines
@@ -204,7 +212,11 @@ ZERO_LAUNCHES = {"scores_masked": 0, "scores_masked_planned": 0, "scores_fs": 0,
 GENERIC_CHECK_STEPS = 511  # steps of the generic arms' kernel-vs-plain check outside the plans
 DENSE_LANES = 50  # the JAX package's dense baseline: 50 lanes x 3,500 symbols (bench.py:162-174)
 DENSE_PLAIN_STEPS = 64  # the plain version's prefix of the dense run_batch
-DENSE_TIME_REPEATS = 2  # a dense run_batch takes about a second
+DENSE_TIME_REPEATS = 2  # repeats of the dense time lines
+DENSE_SETUP_EVENTS = 6  # device kernels of a dense run_batch besides its steps (the first carry)
+DENSE_SETUP_ALLOCS = 8  # blocks a dense run_batch allocates (the first carry and its pair)
+DENSE_HOST_STEPS = 200  # steps of the prefix whose enqueue gives the host's µs a step
+CLUSTER_EDGE = (1, 2, 8)  # pinned cluster sizes of the edge cases
 AUTO_STATES, AUTO_TRANS = 1024, 256  # the seeded dense-class model on which auto resolves to dense
 SPEC_PLAIN_PRODUCTS = ((0, 0), (7, 13), (19, 20), (20, 5))  # (new symbol, earlier) of the level-2 build
 SPEC_PLAIN_CHUNKS = 16  # chunks of the gathered decode held to the plain version
@@ -447,6 +459,39 @@ def minplus_timed(fn, launches: int, repeats: int = DENSE_TIME_REPEATS) -> dict:
             "idle_share": 1.0 - busy_us / span_us if span_us else None}
 
 
+def host_us_per_step(fn, steps: int, repeats: int = 3) -> float:
+    """The host's µs a step of ``fn`` (``steps`` launches, too few to fill
+    the launch queue): ``perf_counter`` around the call without waiting
+    for the device, median of ``repeats`` after a warm-up."""
+    import statistics
+
+    import torch
+
+    per = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        per.append((time.perf_counter() - t0) * 1e6 / steps)
+    torch.cuda.synchronize()
+    return statistics.median(per[1:])
+
+
+def device_events(fn) -> dict:
+    """The device activities of one call of ``fn`` under ``torch.profiler``
+    (kernels, copies, fills), counted by name."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(collections.Counter(e.name for e in prof.events()
+                                    if e.device_type == torch.autograd.DeviceType.CUDA))
+
+
 def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_r, path_u0) -> dict:
     """The phases ``dense_main``, ``dense_kernel_vs_plain`` and
     ``spec_main`` on the corpus model ``hmm``, and the ``time`` lines of
@@ -497,6 +542,15 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
     torch.cuda.synchronize()
     secs["uniform_run_batch"] = time.perf_counter() - t0
     check(tropical.launches["minplus"] == want["run_batch"], "one svt_minplus launch a run_batch step")
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    events = device_events(lambda: dec.run_batch(handle))
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    mp_events = sum(c for name, c in events.items() if "minplus" in name)
+    check(mp_events == want["run_batch"] and sum(events.values()) - mp_events <= DENSE_SETUP_EVENTS,
+          f"run_batch: one device kernel a step and {DENSE_SETUP_EVENTS} or fewer around the loop: {events}")
+    check(allocs <= DENSE_SETUP_ALLOCS, f"run_batch allocates {allocs} blocks: none in the step loop")
+    tropical.reset_launches()
+    dense_u = dec.run_batch(handle)
     t0 = time.perf_counter()
     dense_r = dec.decode_batch(lanes_r)
     secs["ragged_decode_batch"] = time.perf_counter() - t0
@@ -527,6 +581,7 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
           f"auto (dense) == oracle, {AUTO_STATES} states, 4 x 64")
     phase("dense_main", states=n_real, n=n, lanes=DENSE_LANES, padded_lanes=int(dense_u.shape[0]),
           steps=steps, seconds=secs, launches={"minplus": dense_launches, **want},
+          run_batch_device_events=events, run_batch_allocations=allocs,
           ragged_buckets=[[len(i), t] for i, t in plan] if plan else None,
           auto={"states": rnd.states_num, "mode": auto.mode, "oracle_lanes": len(prefix)}, bit_equal=True)
 
@@ -576,6 +631,57 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
         for am in (False, True):
             held(f"{name}, argmin={am}", tropical.minplus(a, b, a_idx, argmin=am),
                  tropical.minplus_plain(a, b, a_idx, argmin=am))
+    # the new arms' edges at each pinned cluster size: a split with no k
+    # (K = 17), all-inf rows (every seventh), J off the tile widths
+    a_inf = edge_rm.clone()
+    a_inf[:, ::7] = float("inf")
+    b56, b65, a17, b17 = ties(1, 999, 56), ties(3, 999, 65), ties(2, 130, 17), ties(2, 17, 17)
+    for cl in CLUSTER_EDGE:
+        tropical.minplus_tune(cl)
+        try:
+            for name, a, a_idx, b in (("TN view, J = 56", edge_tn, None, b56),
+                                      ("gathered, all-inf rows, J = 65", a_inf, idx, b65),
+                                      ("K = 17 short of the cluster", a17, None, b17)):
+                for am in (False, True):
+                    held(f"cluster {cl}, {name}, argmin={am}", tropical.minplus(a, b, a_idx, argmin=am),
+                         tropical.minplus_plain(a, b, a_idx, argmin=am))
+        finally:
+            tropical.minplus_tune()
+    # the one-launch step: its epilogue at a lane's length on the ragged
+    # set, a prefix of the new loop against the plain loop (uniform, and
+    # ragged with lanes frozen at 0-64 steps), the J = 1 step's pointer row
+    a_view = dec.dev.a.T
+    r_seqs_t, r_len = dec.prepare_batch(lanes_r)
+    rv0 = (em_t[:, r_seqs_t[0].long()] + dec.dev.pi[:, None]).contiguous()
+    t_mid = int(r_len[r_len > 0].min())  # lanes below, at and past their length
+    held("the epilogue step, ragged, t at the shortest lane's length",
+         tropical.dense_step(a_view, rv0, em_t, r_seqs_t, r_len, t_mid, torch.empty_like(rv0)),
+         tropical.dense_step_plain(a_view, rv0, em_t, r_seqs_t, r_len, t_mid))
+
+    def new_loop(seqs_t, lens, v):
+        bufs = [v.clone(), torch.empty_like(v)]
+        for t in range(1, DENSE_PLAIN_STEPS + 1):
+            tropical.dense_step(a_view, bufs[(t - 1) % 2], em_t, seqs_t, lens, t, bufs[t % 2])
+        return bufs[DENSE_PLAIN_STEPS % 2]
+
+    def plain_loop(seqs_t, lens, v):
+        for t in range(1, DENSE_PLAIN_STEPS + 1):
+            v = tropical.dense_step_plain(a_view, v, em_t, seqs_t, lens, t)
+        return v
+
+    held(f"{DENSE_PLAIN_STEPS}-step prefix of the one-launch loop, uniform", new_loop(seqs_t, lengths, v0),
+         plain_loop(seqs_t, lengths, v0))
+    frozen = torch.as_tensor(np.resize(np.array([0, 1, 2, 31, 32, 33, 64, T_LEN], np.int32), len(r_len)),
+                             device=dev)
+    held(f"{DENSE_PLAIN_STEPS}-step prefix of the one-launch loop, lanes frozen at 0-64 steps",
+         new_loop(r_seqs_t, frozen, rv0), plain_loop(r_seqs_t, frozen, rv0))
+    src = torch.full((3, 1, n), -1, dtype=torch.int32, device=dev)
+    o1 = int(lanes_u[0][1])
+    v1_flat = v1[0, :, 0].contiguous()
+    w1 = tropical.dense_step_mv(dec.dev.a_t, v1_flat, em_t, o1, torch.empty(n, device=dev), src[1, 0])
+    held("J = 1 step with its epilogue, argmin into a pointer row", (w1, src[1, 0]),
+         tropical.dense_step_mv_plain(dec.dev.a_t, v1_flat, em_t, o1, argmin=True))
+    check(bool((src[0] == -1).all() and (src[2] == -1).all()), "the J = 1 step writes its own pointer row only")
     phase("dense_kernel_vs_plain", max_abs_err=errs, bit_equal=True)
 
     # ---- spec_main: level 1 through the fused decoder, level 2 dense ----
@@ -670,14 +776,24 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
     step_work = bounds.minplus(1, n, n, j, 1)
     step_bound, step_by = step_work.bound()
     timed = minplus_timed(lambda: [tropical.minplus(a_tn, v0[None]) for _ in range(steps)], steps)
-    run_ms = median_ms(lambda: dec.run_batch(handle), repeats=DENSE_TIME_REPEATS)
+    # the decoder's own loop: one dense_step launch a step
+    run = minplus_timed(lambda: dec.run_batch(handle), steps)
+    prefix = dec.prepare_batch([s[: DENSE_HOST_STEPS + 1] for s in lanes_u])
+    host_us = host_us_per_step(lambda: dec.run_batch(prefix), DENSE_HOST_STEPS)
     plain_ms = median_ms(lambda: [tropical.minplus_plain(a_tn, v0[None]) for _ in range(DENSE_PLAIN_STEPS)],
                          repeats=DENSE_TIME_REPEATS)
+    step_shape = tropical.minplus_shape(1, n, n, j, dev)
     time_line(what="dense run_batch", lanes=DENSE_LANES, padded_lanes=j, steps=steps, **timed,
-              us_per_step=timed["ms"] * 1e3 / steps, run_batch_ms=run_ms,
-              run_batch_us_per_step=run_ms * 1e3 / steps, plain_steps=DENSE_PLAIN_STEPS,
+              us_per_step=timed["ms"] * 1e3 / steps, run_batch_ms=run["ms"],
+              run_batch_us_per_step=run["ms"] * 1e3 / steps,
+              run_batch_kernel_us_per_launch=run["kernel_us_per_launch"],
+              run_batch_idle_share=run["idle_share"], host_us_per_step=host_us,
+              host_sets_pace=(host_us > run["kernel_us_per_launch"]) if run["kernel_us_per_launch"] else None,
+              plain_steps=DENSE_PLAIN_STEPS,
               plain_ms=plain_ms, plain_us_per_step=plain_ms * 1e3 / DENSE_PLAIN_STEPS,
-              bound_ms=steps * step_bound, bound_by=step_by, shape=tropical.minplus_shape(1, n, n, j, dev))
+              bound_ms=steps * step_bound, bound_by=step_by, shape=step_shape, tile=step_shape["tile"],
+              thread_tile=step_shape["thread_tile"], cluster=step_shape["cluster"],
+              stages=step_shape["stages"])
     # The bound counts the operator's bytes at the HBM rate. The decode
     # loop reuses one operator, which stays in the 50 MB L2 and is read
     # faster than that (no L2 rate on the data sheet, so no bound for it):
@@ -699,10 +815,12 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
                   resident_ms=warm["ms"], resident_kernel_us_per_launch=res_us,
                   resident_idle_share=warm["idle_share"],
                   resident_read_tb_per_s=work.bytes / res_us / 1e6 if res_us else None,
+                  # no L2 rate on the data sheet: the resident time has only an operations bound
+                  resident_ops_bound_us=work.ops / bounds.F32_OPS_PER_S * 1e6,
                   **{("decode_path_ms" if am else "decode_ms"): whole}, plain_steps=DENSE_PLAIN_STEPS,
                   plain_ms=p1, plain_us_per_step=p1 * 1e3 / DENSE_PLAIN_STEPS,
                   bound_ms=steps * work.bound()[0], bound_by=work.bound()[1],
-                  shape=tropical.minplus_shape(1, n, n, 1, dev))
+                  shape=tropical.minplus_shape(1, n, n, 1, dev, i_contiguous=False, argmin=am))
     del cold
     build = minplus_timed(lambda: specializer._add_level(spec2.ops, spec2.ops), radix)
     b_plain = median_ms(lambda: tropical.minplus_plain(spec2.ops[7][None], spec2.ops[13][None]), repeats=1)
@@ -710,7 +828,7 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
     time_line(what="level-2 build (_add_level)", products=radix**2, **build,
               us_per_product=build["ms"] * 1e3 / radix**2, plain_ms_one_product=b_plain,
               bound_ms=radix * build_work.bound()[0], bound_by=build_work.bound()[1],
-              shape=tropical.minplus_shape(radix, n, n, n, dev))
+              shape=tropical.minplus_shape(radix, n, n, n, dev, i_contiguous=False))
     chunks = steps // 2
     pairs = batch_u[:, 1 : 1 + 2 * chunks].astype(np.int64).reshape(DENSE_LANES, chunks, 2)
     tuples = pairs[:, :, 0] + radix * pairs[:, :, 1]  # [50, 1749]
@@ -724,7 +842,7 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
               plain_us_per_chunk=g_plain * 1e3 / SPEC_PLAIN_CHUNKS, bound_ms=sum(b for b, _ in launch_bounds),
               bound_by="bytes" if all(by == "bytes" for _, by in launch_bounds) else "operations",
               distinct_operators_a_launch_mean=float(np.mean(distinct)),
-              shape=tropical.minplus_shape(DENSE_LANES, n, n, 1, dev))
+              shape=tropical.minplus_shape(DENSE_LANES, n, n, 1, dev, i_contiguous=False))
     del spec2, dec, auto
     torch.cuda.empty_cache()
     return {
@@ -735,6 +853,9 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
         "ms": timed["ms"] / steps, "plain_ms": plain_ms / DENSE_PLAIN_STEPS, "bound_ms": step_bound,
         "bound_by": step_by, "library_ms": None,
         "shape": f"one dense batch step: [{n}, {n}] (min,+) [{n}, {j}]",
+        "tile": step_shape["tile"], "thread_tile": step_shape["thread_tile"], "slices": step_shape["slices"],
+        "cluster": step_shape["cluster"], "stages": step_shape["stages"], "ctas": step_shape["ctas"],
+        "run_batch_kernel_us_per_launch": run["kernel_us_per_launch"], "host_us_per_step": host_us,
     }
 
 

@@ -5,10 +5,11 @@ The port of ``spec_viterbi_tpu/models/decoder.py``. API parity target:
 score vector; ``decode_path``/``decode_path_batch`` add the exact Viterbi
 path and ``streaming()`` the stream engines.
 
-Dense mode is a loop over steps with one (min,+) product each
-(:mod:`spec_viterbi_tpu_torch.ops.dispatch`: the hand-written kernel
-``svt_minplus`` on ``cuda``, its plain version on ``cpu``) and the
-emission add and the length mask in PyTorch around it. Structured mode
+Dense mode is a loop over steps with one launch each: the hand-written
+kernel ``svt_minplus`` with the emission add and the length mask in its
+epilogue (:func:`~spec_viterbi_tpu_torch.ops.tropical.dense_step` and
+``dense_step_mv``) on ``cuda``, their plain versions on ``cpu``, between
+two carries allocated once a call. Structured mode
 decodes through the diagonal/row/col-decomposed operator: on a CUDA
 device, fused-eligible operators decode batches through the hand-written
 kernels of :mod:`spec_viterbi_tpu_torch.ops.fused`; otherwise (a CPU
@@ -19,6 +20,7 @@ package's XLA structured path.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -26,7 +28,7 @@ import torch
 
 from spec_viterbi_tpu_torch.hmm import HMM, pad_to_lane, validate_obs_seq
 from spec_viterbi_tpu_torch.models.streaming_xla import PlainStreamDecoder
-from spec_viterbi_tpu_torch.ops import dispatch, fused
+from spec_viterbi_tpu_torch.ops import fused, tropical
 from spec_viterbi_tpu_torch.ops.structured import (
     StructuredOperator,
     structured_path_batch,
@@ -89,41 +91,65 @@ class DeviceHMM:
         )
 
 
+def _stream_of(device: torch.device):
+    """The device context and the current stream's handle, taken once a
+    call: ``(context, handle)``; the CPU has neither."""
+    if device.type != "cuda":
+        return contextlib.nullcontext(), None
+    return torch.cuda.device(device), torch.cuda.current_stream(device).cuda_stream
+
+
 def _decode_scores(a_t, pi, em, seq: np.ndarray) -> torch.Tensor:
-    """Dense scores of one validated sequence: ``v ← em[o] + a_t ⊗ v``."""
-    v = em[int(seq[0])] + pi
-    for o in seq[1:].tolist():
-        v = em[o] + dispatch.step_mv(a_t, v)
-    return v
+    """Dense scores of one validated sequence: ``v ← em[o] + a_t ⊗ v``,
+    one launch a step (the add in the kernel's epilogue) into a ping-pong
+    pair of carries allocated once."""
+    em_t = em.T
+    ctx, stream = _stream_of(a_t.device)
+    with ctx:
+        bufs = [em[int(seq[0])] + pi, torch.empty_like(pi)]
+        for t, o in enumerate(seq[1:].tolist()):
+            tropical.dense_step_mv(a_t, bufs[t % 2], em_t, o, bufs[(t + 1) % 2], stream=stream)
+    return bufs[(len(seq) - 1) % 2]
 
 
 def _decode_scores_and_path(a_t, pi, em, seq: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense scores and the Viterbi path of one validated sequence: int32
     pointers ``[T-1, 1, n]`` on the device (the lowest source wins a tie),
-    walked back by ``backtrace_plain``."""
-    v = em[int(seq[0])] + pi
-    src = torch.empty((len(seq) - 1, 1, a_t.shape[0]), dtype=torch.int32, device=v.device)
-    for t, o in enumerate(seq[1:].tolist()):
-        u, src[t, 0] = dispatch.step_mv_argmin(a_t, v)
-        v = em[o] + u
+    each step's written in place by its launch, walked back by
+    ``backtrace_plain``."""
+    em_t = em.T
+    ctx, stream = _stream_of(a_t.device)
+    with ctx:
+        bufs = [em[int(seq[0])] + pi, torch.empty_like(pi)]
+        src = torch.empty((len(seq) - 1, 1, a_t.shape[0]), dtype=torch.int32, device=pi.device)
+        for t, o in enumerate(seq[1:].tolist()):
+            tropical.dense_step_mv(a_t, bufs[t % 2], em_t, o, bufs[(t + 1) % 2], src[t, 0],
+                                   stream=stream)
+    v = bufs[(len(seq) - 1) % 2]
     last = torch.argmin(v).to(torch.int32)[None]
     rev = fused.backtrace_plain(src, last)  # [T-1, 1]
     return v, torch.cat([rev[:, 0], last])
 
 
 def _decode_scores_batch(a, pi, em, seqs_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """seqs_t: [T, B] int32 (padded), lengths: [B]. Returns [B, n].
+    """seqs_t: [T, B] int32 (padded), lengths: [B] int32. Returns [B, n].
 
     The carry is state-major ([n, B]), so each step is one TN product that
     reads the transition operator once for the whole batch; a lane freezes
-    once ``t`` reaches its length."""
+    once ``t`` reaches its length. A step is one launch
+    (:func:`~spec_viterbi_tpu_torch.ops.tropical.dense_step`: the emission
+    add and the mask in the kernel's epilogue) from one carry of a
+    ping-pong pair, allocated once, into the other."""
     em_t = em.T  # [n, E]
-    obs = seqs_t.long()
-    v = em_t[:, obs[0]] + pi[:, None]
-    for t in range(1, obs.shape[0]):
-        v_new = em_t[:, obs[t]] + dispatch.batch_step_t(a, v)
-        v = torch.where((t < lengths)[None, :], v_new, v)
-    return v.T
+    a_view = a.T  # A[i, k] = a[k, i]: the TN layout, i contiguous
+    ctx, stream = _stream_of(a.device)
+    with ctx:
+        bufs = [em_t[:, seqs_t[0].long()] + pi[:, None], None]
+        bufs[1] = torch.empty_like(bufs[0])
+        for t in range(1, seqs_t.shape[0]):
+            tropical.dense_step(a_view, bufs[(t - 1) % 2], em_t, seqs_t, lengths, t, bufs[t % 2],
+                                stream=stream)
+    return bufs[(seqs_t.shape[0] - 1) % 2].T
 
 
 class ViterbiDecoder:

@@ -197,10 +197,13 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_fs_shape.argtypes = [i32, i32, vp, vp, vp]
     lib.svt_scores_fs_shape.restype = i32
     i64 = ctypes.c_longlong
-    lib.svt_minplus.argtypes = [vp] * 5 + [i64] * 3 + [i32] * 4 + [vp] * 3
+    lib.svt_minplus.argtypes = ([vp] * 5 + [i64] * 3 + [i32] * 4  # the product
+                                + [vp, i64, i64, vp, i32, vp, i32]  # the step's epilogue
+                                + [vp])
     lib.svt_minplus.restype = i32
-    lib.svt_minplus_shape.argtypes = [i32] * 4 + [vp] * 5
+    lib.svt_minplus_shape.argtypes = [i32] * 4 + [i64] * 2 + [i32] + [vp] * 2
     lib.svt_minplus_shape.restype = i32
+    lib.svt_minplus_tune.argtypes, lib.svt_minplus_tune.restype = [i32], None
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):
         if lib.svt_desc_size(which) != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout differs from csrc/")

@@ -4,7 +4,10 @@ The port of ``spec_viterbi_tpu/ops/dispatch.py``. The JAX module leaves
 these to XLA's broadcast and reduce; here each goes through one launch of
 the hand-written product :func:`~spec_viterbi_tpu_torch.ops.tropical.minplus`
 on a CUDA tensor (its plain version on a CPU tensor), on strided views of
-its operands: no transpose is made.
+its operands: no transpose is made. The specializer and the tests use
+them; the dense decoder's loops launch the same kernel with its epilogue
+through :func:`~spec_viterbi_tpu_torch.ops.tropical.dense_step` and
+``dense_step_mv`` instead, one launch a step.
 """
 
 from __future__ import annotations

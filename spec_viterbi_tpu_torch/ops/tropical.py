@@ -13,16 +13,21 @@ The five functions of the JAX module are written here as plain PyTorch
 (broadcast and reduce, chunked over K where the JAX module chunks).
 Beside them, :func:`minplus` is the wrapper of the CUDA kernel
 ``svt_minplus`` (``csrc/tropical.cu``), which every dense product of the
-decoder and the specializer goes through (:mod:`.dispatch`), and
-:func:`minplus_plain` is its plain version. The wrapper runs the plain
-version for CPU tensors and launches the kernel for CUDA tensors; any
-other device raises. Each candidate is one f32 add, rounded once, and the
+specializer goes through (:mod:`.dispatch`), and :func:`minplus_plain` is
+its plain version. :func:`dense_step` and :func:`dense_step_mv` launch the
+same kernel with its epilogue, one launch a step of the dense decoder
+(the emission add and the length mask folded in), beside their plain
+versions :func:`dense_step_plain` and :func:`dense_step_mv_plain`. Each
+wrapper runs the plain version for CPU tensors and launches the kernel
+for CUDA tensors; any other device raises. All of them count their
+launches under ``launches["minplus"]``. Each candidate is one f32 add, rounded once, and the
 min is exact, so every function here gives the same bits whatever order
 it takes K in.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -34,8 +39,8 @@ INF = float("inf")
 # elements of the [G, I, k_block, J] candidate block of the plain version
 PLAIN_BLOCK_ELEMS = 1 << 25
 
-# Launch count of svt_minplus; the wrapper adds one where it launches the
-# kernel and nowhere else.
+# Launch count of svt_minplus; the wrappers (minplus, dense_step,
+# dense_step_mv) add one where they launch the kernel and nowhere else.
 launches = {"minplus": 0}
 
 
@@ -132,6 +137,47 @@ def minplus_plain(
     return (best, arg) if argmin else best
 
 
+
+
+def _device_guard(device: torch.device):
+    """The device context of ``device``, entered only where it is not the
+    current device already (entering costs the host a few µs a launch)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _want(x: torch.Tensor | None, name: str, dtype, shape: tuple, device: torch.device,
+          contiguous: bool = True) -> None:
+    """Raise unless ``x`` is a ``dtype`` tensor of ``shape`` on ``device``
+    (contiguous where asked)."""
+    if (x is None or x.device != device or x.dtype != dtype or tuple(x.shape) != shape
+            or (contiguous and not x.is_contiguous())):
+        got = "None" if x is None else f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        raise ValueError(f"{name}: want {'contiguous ' if contiguous else ''}{dtype} {shape} "
+                         f"on {device}, got {got}")
+
+
+def _launch(a: torch.Tensor, a_idx, b: torch.Tensor, c: torch.Tensor, arg, sa_g: int, g: int,
+            i: int, k: int, j: int, em_t=None, obs_ptr=None, o: int = 0, lengths=None, t: int = 0,
+            stream: int | None = None) -> None:
+    """One launch of ``svt_minplus`` on the operands' device (the epilogue
+    where ``em_t`` is given); counts it."""
+    lib = _build.library()
+    with _device_guard(b.device):
+        if stream is None:
+            stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = lib.svt_minplus(
+            a.data_ptr(), None if a_idx is None else a_idx.data_ptr(), b.data_ptr(), c.data_ptr(),
+            None if arg is None else arg.data_ptr(), sa_g, a.stride(-2), a.stride(-1), g, i, k, j,
+            None if em_t is None else em_t.data_ptr(),
+            0 if em_t is None else em_t.stride(0), 0 if em_t is None else em_t.stride(1),
+            obs_ptr, o, None if lengths is None else lengths.data_ptr(), t, stream,
+        )
+    _build.check(lib, rc, "svt_minplus")
+    launches["minplus"] += 1
+
+
 def minplus(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -184,52 +230,149 @@ def minplus(
         stride_g = a.stride(0)
     if out is None:
         c = torch.empty((g, i, j), dtype=torch.float32, device=b.device)
-    elif (out.device != b.device or out.dtype != torch.float32 or tuple(out.shape) != (g, i, j)
-          or not out.is_contiguous()):
-        raise ValueError(f"out: want contiguous float32 {(g, i, j)} on {b.device}, got "
-                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     else:
+        _want(out, "out", torch.float32, (g, i, j), b.device)
         c = out
     arg = torch.empty((g, i, j), dtype=torch.int32, device=b.device) if argmin else None
     if c.numel():
-        # K split over CTAs: the wrapper allocates the splits' workspace
-        splits = minplus_shape(g, i, k, j, b.device)["splits"]
-        ws = ws_arg = None
-        if splits > 1:
-            ws = torch.empty((splits, g, i, j), dtype=torch.float32, device=b.device)
-            if argmin:
-                ws_arg = torch.empty((splits, g, i, j), dtype=torch.int32, device=b.device)
-        lib = _build.library()
-        with torch.cuda.device(b.device):
-            rc = lib.svt_minplus(
-                a.data_ptr(), None if a_idx is None else a_idx.data_ptr(), b.data_ptr(),
-                c.data_ptr(), None if arg is None else arg.data_ptr(),
-                stride_g, a.stride(1), a.stride(2), g, i, k, j,
-                None if ws is None else ws.data_ptr(), None if ws_arg is None else ws_arg.data_ptr(),
-                torch.cuda.current_stream(b.device).cuda_stream,
-            )
-            _build.check(lib, rc, "svt_minplus")
-            launches["minplus"] += 1
+        _launch(a, a_idx, b, c, arg, stride_g, g, i, k, j)
     return (c, arg) if argmin else c
+
+
+def dense_step_plain(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: torch.Tensor,
+                     lengths: torch.Tensor | None, t: int) -> torch.Tensor:
+    """Plain version of :func:`dense_step`: the product
+    (:func:`minplus_plain`), then the JAX package's step,
+    ``where(t < lengths, em_t[:, obs[t]] + u, v)``."""
+    u = minplus_plain(a_view[None], v[None])[0]
+    v_new = em_t[:, obs[t].long()] + u
+    if lengths is None:
+        return v_new
+    return torch.where((t < lengths)[None, :], v_new, v)
+
+
+def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: torch.Tensor,
+               lengths: torch.Tensor | None, t: int, out: torch.Tensor, *,
+               stream: int | None = None) -> torch.Tensor:
+    """One step of the dense batched decode in one ``svt_minplus`` launch
+    (counted under ``minplus``), the emission add and the length mask in
+    its epilogue::
+
+        out[i, b] = em_t[i, obs[t, b]] + min_k a_view[i, k] + v[k, b]   where t < lengths[b]
+                  = v[i, b]                                            elsewhere
+
+    (every lane steps where ``lengths`` is None). ``a_view`` [n, n] f32, any
+    strides (the decoder passes the transposed view of the untransposed
+    matrix); ``v`` and ``out`` [n, B] f32, contiguous and distinct (a
+    ping-pong pair of carries); ``em_t`` [n, E] f32, any strides; ``obs``
+    [T, B] int32, contiguous; ``lengths`` [B] int32. Symbols must lie in
+    ``[0, E)``: the card does not check them. ``stream`` (a CUDA stream
+    handle) saves the lookup of the current stream a step. Returns
+    ``out``. A CPU tensor takes the plain version."""
+    if v.device.type == "cpu":
+        return out.copy_(dense_step_plain(a_view, v, em_t, obs, lengths, t))
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    dev = v.device
+    n, lanes = v.shape
+    _want(v, "v", torch.float32, (n, lanes), dev)
+    _want(out, "out", torch.float32, (n, lanes), dev)
+    _want(a_view, "a_view", torch.float32, (n, n), dev, contiguous=False)
+    _want(em_t, "em_t", torch.float32, (n, em_t.shape[1]), dev, contiguous=False)
+    _want(obs, "obs", torch.int32, (obs.shape[0], lanes), dev)
+    if lengths is not None:
+        _want(lengths, "lengths", torch.int32, (lanes,), dev)
+    if out.data_ptr() == v.data_ptr():
+        raise ValueError("out must not be v: other CTAs still read v")
+    if not 0 <= t < obs.shape[0]:
+        raise ValueError(f"t = {t} outside obs's {obs.shape[0]} steps")
+    if n and lanes:
+        _launch(a_view, None, v, out, None, 0, 1, n, n, lanes, em_t=em_t,
+                obs_ptr=obs.data_ptr() + t * obs.stride(0) * obs.element_size(), lengths=lengths,
+                t=t, stream=stream)
+    return out
+
+
+def dense_step_mv_plain(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, o: int,
+                        argmin: bool = False):
+    """Plain version of :func:`dense_step_mv`: ``em_t[:, o] + u`` after the
+    product (:func:`minplus_plain`), and the product's argmin with
+    ``argmin``."""
+    res = minplus_plain(a_view[None], v[None, :, None], argmin=argmin)
+    u = res[0] if argmin else res
+    w = em_t[:, o] + u[0, :, 0]
+    return (w, res[1][0, :, 0]) if argmin else w
+
+
+def dense_step_mv(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, o: int,
+                  out: torch.Tensor, src: torch.Tensor | None = None, *,
+                  stream: int | None = None) -> torch.Tensor:
+    """One step of the dense single-sequence decode in one ``svt_minplus``
+    launch (counted under ``minplus``): ``out[i] = em_t[i, o] + min_k
+    a_view[i, k] + v[k]``, and, where ``src`` is given, the lowest such k
+    written into it (int32, a row of the caller's pointer tensor). ``a_view``
+    [n, K] f32, any strides; ``v`` [K] and ``out`` [n] f32, contiguous and
+    distinct; ``em_t`` [n, E] f32, any strides; ``o`` in ``[0, E)``.
+    Returns ``out``. A CPU tensor takes the plain version."""
+    if v.device.type == "cpu":
+        res = dense_step_mv_plain(a_view, v, em_t, o, argmin=src is not None)
+        if src is None:
+            return out.copy_(res)
+        src.copy_(res[1])
+        return out.copy_(res[0])
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    dev = v.device
+    n, k = a_view.shape
+    _want(a_view, "a_view", torch.float32, (n, k), dev, contiguous=False)
+    _want(v, "v", torch.float32, (k,), dev)
+    _want(out, "out", torch.float32, (n,), dev)
+    _want(em_t, "em_t", torch.float32, (n, em_t.shape[1]), dev, contiguous=False)
+    if src is not None:
+        _want(src, "src", torch.int32, (n,), dev)
+    if out.data_ptr() == v.data_ptr():
+        raise ValueError("out must not be v: other CTAs still read v")
+    if not 0 <= o < em_t.shape[1]:
+        raise ValueError(f"symbol {o} outside [0, {em_t.shape[1]})")
+    if n:
+        _launch(a_view, None, v, out, src, 0, 1, n, k, 1, em_t=em_t, o=o, stream=stream)
+    return out
 
 
 _shapes: dict[tuple, dict] = {}
 
 
-def minplus_shape(g: int, i: int, k: int, j: int, device: torch.device) -> dict:
+def minplus_shape(g: int, i: int, k: int, j: int, device: torch.device, *,
+                  i_contiguous: bool = True, argmin: bool = False) -> dict:
     """The shape ``svt_minplus`` launches for a [g, i, j] output over ``k``
-    (cached): tile rows and columns (1 x 1 is the J = 1 row arm), threads
-    a CTA, CTAs, and the splits of K over CTAs."""
+    with A i-contiguous (the batch step's transposed view) or k-contiguous,
+    with or without argmin (cached): ``tile`` rows and columns (1 x 1 is
+    the J = 1 row arm), ``thread_tile`` (a thread's minima; the row arm's
+    1 x 4 is a lane's float4 of k), ``slices`` (thread groups that split a
+    stage's k in a CTA), ``threads`` a CTA, ``cluster`` (the CTAs that
+    split K, 1 for none), ``k_split``, ``stages`` of the shared-memory ring
+    (0 for none), ``resident_ctas`` (the launch's CTAs the card holds at
+    once) and ``ctas`` in all."""
     device = torch.device(device)
-    key = (device.index, g, i, k, j)
+    key = (device.index, g, i, k, j, i_contiguous, argmin)
     if key not in _shapes:
         lib = _build.library()
-        bm, bn, threads, splits = (ctypes.c_int() for _ in range(4))
+        vals = (ctypes.c_int * 10)()
         ctas = ctypes.c_longlong()
+        sa_i, sa_k = (1, i) if i_contiguous else (k, 1)
         with torch.cuda.device(device):
-            rc = lib.svt_minplus_shape(g, i, k, j, ctypes.byref(bm), ctypes.byref(bn),
-                                       ctypes.byref(threads), ctypes.byref(ctas), ctypes.byref(splits))
+            rc = lib.svt_minplus_shape(g, i, k, j, sa_i, sa_k, int(argmin), vals, ctypes.byref(ctas))
         _build.check(lib, rc, "svt_minplus_shape")
-        _shapes[key] = {"tile": [bm.value, bn.value], "threads": threads.value, "ctas": ctas.value,
-                        "splits": splits.value}
+        bm, bn, tm, tn, slices, threads, cluster, k_split, stages, resident = vals
+        _shapes[key] = {"tile": [bm, bn], "thread_tile": [tm, tn], "slices": slices,
+                        "threads": threads, "cluster": cluster, "k_split": k_split,
+                        "stages": stages, "resident_ctas": resident, "ctas": ctas.value}
     return _shapes[key]
+
+
+def minplus_tune(cluster: int = 0) -> None:
+    """Pin the tiled arm's cluster size (1-16) for a test or a
+    measurement; ``minplus_tune()`` restores the shape function's
+    choice."""
+    _build.library().svt_minplus_tune(cluster)
+    _shapes.clear()

@@ -164,3 +164,67 @@ def test_dense_mode_checks_inputs():
     for call in (lambda: dec.decode([]), lambda: dec.decode_path([])):
         with pytest.raises(ValueError, match="empty"):
             call()
+
+
+@pytest.mark.parametrize("seed", [12, 13])
+def test_dense_ragged_tie_heavy_matches_jax_and_oracle(seed):
+    """The one-launch step on the tie-heavy model: ragged ``decode_batch``
+    (bucketed and whole, so lanes freeze at every length and padded lanes
+    of length 0 ride along), ``run_batch`` with its padded lanes, and
+    ``decode_path`` bit-equal to the JAX decoder and to the oracles."""
+    hmm = generate_tie_heavy_hmm(45, seed=seed)
+    ref = _ref(hmm)
+    dec = port.ViterbiDecoder(hmm, mode="dense", device="cpu")
+    ref_dec = RefDecoder(ref, mode="dense")
+    seqs = _seqs(hmm, seed, count=13, t_max=50)
+    for bucketed in (True, False):
+        for g, w, s in zip(dec.decode_batch(seqs, bucketed=bucketed),
+                           ref_dec.decode_batch(seqs, bucketed=bucketed), seqs):
+            np.testing.assert_array_equal(g, np.asarray(w))
+            np.testing.assert_array_equal(g, viterbi_scores_oracle(ref, s))
+    out = dec.run_batch(dec.prepare_batch(seqs[:5]))  # 3 padded lanes of length 0
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_dec.run_batch(ref_dec.prepare_batch(seqs[:5]))))
+    for s in seqs[:4]:
+        sc, p = dec.decode_path(s)
+        rsc, rp = ref_dec.decode_path(s)
+        osc, op = viterbi_path_oracle(ref, s)
+        np.testing.assert_array_equal(sc, np.asarray(rsc))
+        np.testing.assert_array_equal(p, np.asarray(rp))
+        np.testing.assert_array_equal(sc, osc)
+        np.testing.assert_array_equal(p, op)
+
+
+def test_dense_loops_take_one_step_call_a_step(monkeypatch):
+    """Each dense loop calls its step entry once a step, from one carry of
+    a ping-pong pair into the other (no carry allocated in the loop), and
+    ``decode_path``'s step writes its pointers into the rows of one
+    preallocated tensor."""
+    hmm = generate_random_hmm(30, trans_per_state=20, emit_range=4, seed=6)
+    dec = port.ViterbiDecoder(hmm, mode="dense", device="cpu")
+    calls = {"dense_step": [], "dense_step_mv": []}
+    for name in calls:
+        real = getattr(tropical, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls[_name].append(args)
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(tropical, name, spy)
+    seqs = _seqs(hmm, 6, count=5, t_max=30)
+    t_len = max(map(len, seqs))
+    dec.run_batch(dec.prepare_batch(seqs))
+    steps = calls["dense_step"]
+    assert len(steps) == t_len - 1
+    assert [c[5] for c in steps] == list(range(1, t_len))
+    carries = {c[1].data_ptr() for c in steps} | {c[6].data_ptr() for c in steps}
+    assert len(carries) == 2 and all(c[1].data_ptr() != c[6].data_ptr() for c in steps)
+    s = seqs[2]
+    dec.decode(s)
+    dec.decode_path(s)
+    mv = calls["dense_step_mv"]
+    assert len(mv) == 2 * (len(s) - 1)
+    assert len({c[1].data_ptr() for c in mv[: len(s) - 1]}) == 2
+    rows = [c[5] for c in mv[len(s) - 1 :]]
+    assert all(r.shape == (hmm.states_num + (-hmm.states_num) % 128,) for r in rows)
+    assert [r.data_ptr() - rows[0].data_ptr() for r in rows] == [
+        t * rows[0].numel() * 4 for t in range(len(s) - 1)]

@@ -1109,9 +1109,10 @@ def _minplus_a(rng, layout, g, i, k, device):
                                      (2, 200, 700, 9), (1, 64, 0, 5)])
 def test_minplus_equals_plain_on_card(cuda_device, argmin, layout, g, i, k, j):
     """Both layouts of A, the gathered form and the argmin arm, with ties
-    and all-inf rows, I, J and K off every tile multiple (64 x 64 and
-    64 x 16 tiles, k stages of 16, K split over CTAs and merged; J = 1
-    takes the row arm; K = 0 gives +inf and 0): bit-equal."""
+    and all-inf rows, I, J and K off every tile multiple (the narrow and
+    wide tiles, k stages of 16, K split over a cluster's CTAs and reduced
+    through distributed shared memory; J = 1 takes the row arm; K = 0
+    gives +inf and 0): bit-equal."""
     rng = np.random.default_rng(g * 7 + i + k + j)
     a, idx = _minplus_a(rng, layout, g, i, k, cuda_device)
     b = _minplus_mat(rng, (g, k, j), cuda_device)
@@ -1120,9 +1121,12 @@ def test_minplus_equals_plain_on_card(cuda_device, argmin, layout, g, i, k, j):
     want = tropical.minplus_plain(a, b, idx, argmin=argmin)
     torch.cuda.synchronize()
     assert tropical.launches == {"minplus": 1}
-    shape = tropical.minplus_shape(g, i, k, j, cuda_device)
-    assert (shape["splits"] > 1) == ((g, i, k, j) in ((1, 2432, 2432, 56), (3, 67, 131, 37),
-                                                      (2, 129, 1000, 65), (2, 200, 700, 9)))
+    shape = tropical.minplus_shape(g, i, k, j, cuda_device, i_contiguous=layout == "tn_view",
+                                   argmin=argmin)
+    assert shape["cluster"] * shape["k_split"] >= k and 1 <= shape["cluster"] <= 16
+    assert (shape["tile"] == [1, 1]) == (j == 1)
+    if (g, i, k, j) == (1, 2432, 2432, 56):  # the dense batch step: a 56-wide tile, K split
+        assert shape["tile"][1] == 56 and shape["cluster"] > 1
     if argmin:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     else:
@@ -1173,6 +1177,149 @@ def test_minplus_wrapper_checks_inputs(cuda_device):
         tropical.minplus(torch.zeros((3, 8, 9), device=cuda_device), b)
     with pytest.raises(ValueError, match="out"):
         tropical.minplus(a, b, out=torch.empty((2, 4, 8), device=cuda_device))
+
+
+# J, and (I, K) taken in turn over the ragged sizes and the corpus's
+MINPLUS_J = (1, 2, 8, 16, 17, 56, 64, 65, 512)
+MINPLUS_IK = ((999, 1001), (1001, 2432), (2432, 999))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argmin", [False, True])
+@pytest.mark.parametrize("layout", ["own", "shared", "tn_view", "gathered"])
+@pytest.mark.parametrize("j", MINPLUS_J)
+def test_minplus_arms_equal_plain_on_card(cuda_device, argmin, layout, j):
+    """Every tile of the tiled arm (J = 2-512) and the row arm (J = 1) at
+    I and K of 999, 1,001 and 2,432 (off and on the float4, tile and stage
+    multiples), in both layouts, gathered and shared, into ``out=``:
+    bit-equal to ``minplus_plain``, argmins included."""
+    i, k = MINPLUS_IK[MINPLUS_J.index(j) % 3]
+    g = 1 if j >= 512 else 2
+    rng = np.random.default_rng(j * 10 + len(layout) + argmin)
+    a, idx = _minplus_a(rng, layout, g, i, k, cuda_device)
+    b = _minplus_mat(rng, (g, k, j), cuda_device)
+    out = torch.full((g, i, j), -1.0, device=cuda_device)
+    got = tropical.minplus(a, b, idx, argmin=argmin, out=out)
+    want = tropical.minplus_plain(a, b, idx, argmin=argmin)
+    torch.cuda.synchronize()
+    if argmin:
+        assert got[0] is out and torch.equal(out, want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert got is out and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("layout", ["tn_view", "own", "gathered"])
+@pytest.mark.parametrize("i,k,j", [(1001, 999, 56), (130, 17, 9), (64, 0, 17), (200, 45, 65)])
+def test_minplus_cluster_sizes_on_card(cuda_device, cluster, layout, i, k, j):
+    """The tiled arm at each pinned cluster size: K long enough for every
+    split, and K too short for a full cluster (45, 17 and 0 k: splits with
+    no k, whose +inf minima never win), with and without argmin:
+    bit-equal; the shape reports the size."""
+    rng = np.random.default_rng(cluster * 100 + k + j)
+    a, idx = _minplus_a(rng, layout, 2, i, k, cuda_device)
+    b = _minplus_mat(rng, (2, k, j), cuda_device)
+    tropical.minplus_tune(cluster)
+    try:
+        shape = tropical.minplus_shape(2, i, k, j, cuda_device, i_contiguous=layout == "tn_view")
+        assert shape["cluster"] == cluster
+        for argmin in (False, True):
+            got = tropical.minplus(a, b, idx, argmin=argmin)
+            want = tropical.minplus_plain(a, b, idx, argmin=argmin)
+            torch.cuda.synchronize()
+            if argmin:
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            else:
+                assert torch.equal(got, want)
+    finally:
+        tropical.minplus_tune()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j", [1, 8, 56])
+@pytest.mark.parametrize("cluster", [0, 8])
+def test_minplus_all_inf_rows_point_to_zero_on_card(cuda_device, j, cluster):
+    """Rows of A and a column of B that no finite candidate reaches: +inf
+    and source 0, on every arm and split."""
+    rng = np.random.default_rng(j + cluster)
+    a = _minplus_mat(rng, (1, 1001, 999), cuda_device)
+    a[0, [7, 300, 1000]] = float("inf")
+    b = _minplus_mat(rng, (1, 999, j), cuda_device)
+    if j > 1:
+        b[0, :, 3] = float("inf")
+    tropical.minplus_tune(cluster)
+    try:
+        for view in (a, a[0].T.contiguous().T[None]):
+            got, arg = tropical.minplus(view, b, argmin=True)
+            want, warg = tropical.minplus_plain(view, b, argmin=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(arg, warg)
+            assert torch.isinf(got[0, [7, 300, 1000]]).all() and not arg[0, [7, 300, 1000]].any()
+            if j > 1:
+                assert torch.isinf(got[0, :, 3]).all() and not arg[0, :, 3].any()
+    finally:
+        tropical.minplus_tune()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lanes", [(999, 8), (1001, 17), (2432, 56), (130, 2)])
+def test_dense_step_equals_plain_on_card(cuda_device, n, lanes):
+    """The batch step's epilogue in one launch: lanes with ``t`` below, at
+    and above their length and padded lanes of length 0 (frozen lanes keep
+    the carry's bits), and every lane stepping without lengths; then the
+    J = 1 step with its argmin written into a row of a pointer tensor:
+    bit-equal to the plain versions."""
+    rng = np.random.default_rng(n + lanes)
+    a = _minplus_mat(rng, (1, n, n), cuda_device)[0]
+    v = _minplus_mat(rng, (1, n, lanes), cuda_device)[0]
+    em = _minplus_mat(rng, (1, 5, n), cuda_device)[0]
+    obs = torch.as_tensor(rng.integers(0, 5, size=(12, lanes)).astype(np.int32), device=cuda_device)
+    t = 6
+    lengths = torch.as_tensor(np.resize(np.array([0, 1, 5, 6, 7, 12], np.int32), lanes),
+                              device=cuda_device)
+    for lens in (lengths, None):
+        out = torch.full_like(v, -1.0)
+        tropical.reset_launches()
+        assert tropical.dense_step(a.T, v, em.T, obs, lens, t, out) is out
+        want = tropical.dense_step_plain(a.T, v, em.T, obs, lens, t)
+        torch.cuda.synchronize()
+        assert tropical.launches == {"minplus": 1} and torch.equal(out, want)
+        if lens is not None:
+            frozen = lens <= t
+            assert torch.equal(out[:, frozen], v[:, frozen])
+    src = torch.full((3, 1, n), -1, dtype=torch.int32, device=cuda_device)
+    w = torch.empty(n, device=cuda_device)
+    for view in (a, a.T):
+        tropical.dense_step_mv(view, v[:, 0].contiguous(), em.T, 3, w, src[1, 0])
+        want_w, want_i = tropical.dense_step_mv_plain(view, v[:, 0].contiguous(), em.T, 3, argmin=True)
+        torch.cuda.synchronize()
+        assert torch.equal(w, want_w) and torch.equal(src[1, 0], want_i)
+        assert (src[0] == -1).all() and (src[2] == -1).all()
+
+
+@pytest.mark.cuda
+def test_dense_step_wrappers_check_inputs(cuda_device):
+    a = torch.zeros((8, 8), device=cuda_device)
+    v = torch.zeros((8, 3), device=cuda_device)
+    em = torch.zeros((2, 8), device=cuda_device)
+    obs = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(v)
+    with pytest.raises(ValueError, match="must not be v"):
+        tropical.dense_step(a.T, v, em.T, obs, None, 1, v)
+    with pytest.raises(ValueError, match="obs"):
+        tropical.dense_step(a.T, v, em.T, obs.long(), None, 1, out)
+    with pytest.raises(ValueError, match="lengths"):
+        tropical.dense_step(a.T, v, em.T, obs, torch.zeros(2, dtype=torch.int32, device=cuda_device), 1, out)
+    with pytest.raises(ValueError, match="t = 4"):
+        tropical.dense_step(a.T, v, em.T, obs, None, 4, out)
+    with pytest.raises(ValueError, match="a_view"):
+        tropical.dense_step(a[:, :5], v, em.T, obs, None, 1, out)
+    with pytest.raises(ValueError, match="symbol 2"):
+        tropical.dense_step_mv(a, v[:, 0].contiguous(), em.T, 2, torch.empty(8, device=cuda_device))
+    with pytest.raises(ValueError, match="src"):
+        tropical.dense_step_mv(a, v[:, 0].contiguous(), em.T, 1, torch.empty(8, device=cuda_device),
+                               torch.empty(8, dtype=torch.int64, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -151,3 +151,79 @@ def test_all_inf_rows_point_to_zero():
     c, arg = tropical.minplus_plain(torch.from_numpy(m)[None], torch.from_numpy(v)[None, :, None],
                                     argmin=True, k_block=2)
     assert arg[0, :, 0].tolist() == [0, 3, 0]
+
+
+def _step_inputs(rng, kind, n=13, lanes=11, e=5, steps=10):
+    """Seeded operands of one dense batch step: the untransposed matrix,
+    a carry, the [E, n] emissions and [T, B] symbols."""
+    a = _mat(rng, (n, n), kind)
+    v = _mat(rng, (n, lanes), "real" if kind == "real" else "ties")
+    em = _mat(rng, (e, n), kind)
+    obs = rng.integers(0, e, size=(steps, lanes)).astype(np.int32)
+    return a, v, em, obs
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("with_lengths", [False, True])
+@pytest.mark.parametrize("t", [1, 4, 9])
+def test_dense_step_plain_matches_jax_step(kind, with_lengths, t):
+    """``dense_step_plain`` against the JAX dense step
+    (``spec_viterbi_tpu/models/decoder.py``: ``batch_step_t``, then
+    ``em_t[:, s_t] +``, then the ``where`` on ``t < lengths``), with lanes
+    below, at and past ``t`` and padded lanes of length 0; the wrapper on
+    the CPU gives the same bits into ``out`` and counts no launch."""
+    rng = np.random.default_rng(KINDS.index(kind) * 10 + t)
+    a, v, em, obs = _step_inputs(rng, kind)
+    lanes = v.shape[1]
+    lengths = np.array([0, 0, 1, t - 1, t, t, t + 1, t + 2, 10, 3, 7][:lanes], np.int32)
+    u = ref_dispatch.batch_step_t(jnp.asarray(a), jnp.asarray(v))
+    v_new = jnp.asarray(em).T[:, obs[t]] + u
+    want = jnp.where((t < jnp.asarray(lengths))[None, :], v_new, jnp.asarray(v)) if with_lengths else v_new
+    ta, tv, tem, tobs = (torch.from_numpy(x) for x in (a, v, em, obs))
+    tlen = torch.from_numpy(lengths) if with_lengths else None
+    _eq(tropical.dense_step_plain(ta.T, tv, tem.T, tobs, tlen, t), want)
+    out = torch.full_like(tv, -1.0)
+    tropical.reset_launches()
+    assert tropical.dense_step(ta.T, tv, tem.T, tobs, tlen, t, out) is out
+    _eq(out, want)
+    assert tropical.launches == {"minplus": 0}
+    if with_lengths:  # frozen lanes keep the carry's bits, +inf included
+        keep = lengths > t
+        np.testing.assert_array_equal(out.numpy()[:, ~keep], v[:, ~keep])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("o", [0, 4])
+def test_dense_step_mv_writes_argmin_into_src_row(kind, o):
+    """The J = 1 step with its epilogue: ``em_t[:, o] + u`` bit-equal to
+    ``minplus_plain`` followed by the add and to the JAX step
+    (``step_mv_argmin``, then ``em[o] +``), its argmin written into a row
+    of a preallocated pointer tensor and nowhere else."""
+    rng = np.random.default_rng(KINDS.index(kind) * 3 + o)
+    n, e = 12, 5
+    a_t = _mat(rng, (n, n), kind)
+    v = _mat(rng, (n,), "real" if kind == "real" else "ties")
+    em = _mat(rng, (e, n), kind)
+    ta, tv, tem = (torch.from_numpy(x) for x in (a_t, v, em))
+    src = torch.full((3, 1, n), -1, dtype=torch.int32)
+    out = torch.empty(n)
+    assert tropical.dense_step_mv(ta, tv, tem.T, o, out, src[1, 0]) is out
+    u, idx = tropical.minplus_plain(ta[None], tv[None, :, None], argmin=True)
+    assert torch.equal(out, tem[o] + u[0, :, 0]) and torch.equal(src[1, 0], idx[0, :, 0])
+    assert (src[0] == -1).all() and (src[2] == -1).all()
+    ru, ridx = ref_dispatch.step_mv_argmin(jnp.asarray(a_t), jnp.asarray(v))
+    _eq(out, jnp.asarray(em)[o] + ru)
+    _eq(src[1, 0], ridx)
+    w, i = tropical.dense_step_mv_plain(ta, tv, tem.T, o, argmin=True)
+    assert torch.equal(w, out) and torch.equal(i, src[1, 0])
+    assert torch.equal(tropical.dense_step_mv(ta, tv, tem.T, o, torch.empty(n)), out)
+
+
+def test_dense_step_wrappers_refuse_other_devices():
+    a = torch.zeros(4, 4, device="meta")
+    v = torch.zeros(4, 2, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tropical.dense_step(a, v, a, torch.zeros(3, 2, dtype=torch.int32, device="meta"), None, 1,
+                            torch.empty_like(v))
+    with pytest.raises(ValueError, match="no kernel"):
+        tropical.dense_step_mv(a, v[:, 0], a, 0, torch.empty(4, device="meta"))
