@@ -49,7 +49,7 @@ exits non-zero:
     finalize again, every ``svt_backtrace`` launch held to
     ``backtrace_plain`` and to the staged walk's emulation
     (``probes/emulation.py``) on its own pointer tensor, and the same for
-    a TP and a DP path call (steps 16 and 19): the ``backtrace_misses``
+    a TP and a DP path call (steps 17 and 20): the ``backtrace_misses``
     line, the emulation's misses a lane of each call; then ``fs_shape``,
     the shape ``svt_scores_fs`` takes at 512, 256 and 128 lanes (threads a
     lane, lanes a CTA, registers, CTAs an SM);
@@ -95,25 +95,49 @@ exits non-zero:
     HBM as the bound counts it, and give the decode loop's one reused,
     L2-resident operator beside them as ``resident_*``); the stack is
     freed;
-16. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
+16. ``parallel_rest``: the local forms of the rest of ``parallel/`` on
+    the card, on this model, each bit-equal to the unsharded result above:
+    ``decode_batch_dp`` (data 2) on the 50 uniform and 50 ragged
+    sequences (the dense ``run_batch`` and ``decode_batch``),
+    ``decode_tp`` (state 4, row blocks of [608, 2,432]) on one sequence
+    (the dense ``decode``), ``decode_batch_dp_tp`` (2 x 2, row blocks of
+    [1,216, 2,432] with ``row0``) on the 50 uniform sequences,
+    ``decode_batch_structured_tp`` (state 4) on both 512-lane sets and
+    ``decode_batch_structured_dp`` (data 2) on the ragged set (the fused
+    decoder's scores), and ``StreamDP`` (data 2) on both sets in the
+    ``stream`` phase's chunks (its scores and paths); one line an entry
+    point with its launches, warm seconds (median of 3), the host's µs a
+    step against the device's µs a launch and its idle share (a 200-step
+    prefix under ``torch.profiler``); then the ``time`` lines of
+    ``svt_minplus``'s two new shapes, each held to its bound: the TP
+    block's J = 1 step (32 copies in turn, so each launch reads from
+    HBM) and the DP x TP block's batch step; every shape these entry
+    points give ``svt_minplus`` is held bit-equal to its plain version:
+    the J = 1 step of each of the 4 state blocks (its strided rows of
+    ``em_t``) on the first and the last carry, each DP shard's 32-lane
+    step of both sets (the ragged one where its shortest lane stops) and
+    the DP x TP block step;
+17. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
     states, offsets (1, 3), 4 symbols) on a local group of 4 shards, chunk
     16: ``FusedTPDecoder.decode_batch`` and ``decode_path_batch`` on a
     uniform (512 × 3,500) and a ragged set (the lengths of step 4), with
     the launch counts read around each call (219 window launches a call,
     one backtrace a path call); scores, paths and the global pointer
     tensor bit-equal to the unsharded kernels';
-17. ``tp_kernel_vs_plain``: both window kernels against their plain
+18. ``tp_kernel_vs_plain``: both window kernels against their plain
     versions on the first 4 chunks, uniform and ragged, in the local form
     and in the rank form of every shard (one window, window-local
     pointers), and ``decode_batch_emulated(check_path_kernel=True)`` on
     128 lanes;
-18. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
+19. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
     a prefix and on a seeded tie-heavy banded model: bit-equal;
-19. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
+20. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
     bit-equal to the single-device decode;
-20. ``tp_dist``: with two or more cards, TP on that many NCCL ranks (at
-    most 4), bit-equal to the local group; with one card it says so;
-21. time kernel and plain version of the window kernels (the whole TP
+21. ``tp_dist``: with two or more cards, TP on 2 or 4 NCCL ranks,
+    bit-equal to the local group, then ``parallel_rest``'s dense DP, TP,
+    structured TP and ``StreamDP`` over those ranks (and DP x TP as 2 x 2
+    on 4), bit-equal to the unsharded results; with one card it says so;
+22. time kernel and plain version of the window kernels (the whole TP
     decode, and kernel vs plain on the first 4 chunks, beside the
     unsharded kernels on the same model and lanes); then both window
     kernels in both launch forms through the decoder's chunk loops
@@ -122,7 +146,7 @@ exits non-zero:
     host's µs a chunk and the device's idle share; the device time of one
     launch against its steps (0 to 1,024); and an ``occupancy_*_window``
     line for each kernel;
-22. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
+23. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
     uniform set, with the probe kernels' launch counts read around that
     run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
     their drift verdict, the two-symbol step, staged emissions), S2 (the
@@ -138,7 +162,7 @@ exits non-zero:
     bit-equal to its plain version); then each
     probe kernel against its plain version on a 64-step slice, every
     class, scheme and flag, bit-equal;
-23. time kernel and plain version of the scores kernels at the uniform
+24. time kernel and plain version of the scores kernels at the uniform
     shape and the path kernels at one uniform path call (median of 5; the
     plain path scans on fewer repeats, as their lines say), each arm of
     the masked and path kernels on its own line; both arms of the masked
@@ -148,7 +172,7 @@ exits non-zero:
     their bounds (the generic arms on the same calls, marked as off the
     corpus model's main path). The FS kernel's and the backtrace's
     ``time``, ``rank`` and ``kernels`` entries carry their chain floors.
-24. ``spec_struct``: ``StructuredSpecializedViterbi(level=2)`` on the
+25. ``spec_struct``: ``StructuredSpecializedViterbi(level=2)`` on the
     corpus model: the factored form (the fused decoder) through
     ``run_spec_batch`` on both sets and ``run_spec`` on one sequence, with
     the launch counts read around that run (one FS launch a uniform call,
@@ -157,16 +181,16 @@ exits non-zero:
     PyTorch, no kernel) on 8 uniform and 4 ragged lanes: within ±1.0 of the
     dense scores and bit-equal to the same composed code on the CPU; the
     host seconds of each form on those lanes;
-25. ``bench``: the headline line (``spec_viterbi_tpu_torch.bench.headline``,
+26. ``bench``: the headline line (``spec_viterbi_tpu_torch.bench.headline``,
     the entry point's default inputs: this model and the first 50 uniform
     sequences) at full size: 16 pre-staged batches of 512 x 3,500, the
     dense baseline, the ``empty`` floor at 2,432 x 512, the bit-equality
     gate;
-26. ``bench_sweep``: both ``.dat`` sweeps (``bench/bench_viterbi.py``)
+27. ``bench_sweep``: both ``.dat`` sweeps (``bench/bench_viterbi.py``)
     over this model and a 502-state profile model on the 50 sequences,
     2 timed runs a cell, the spec sweep's prep once; NaN exactly where the
     8 GB memory policy says;
-27. ``bench_ragged``: the ragged bench (``bench/bench_ragged.py``) on this
+28. ``bench_ragged``: the ragged bench (``bench/bench_ragged.py``) on this
     model with the ragged set's lengths, both path columns with their
     peak allocated memory against the pointer budget (``path_peak``
     lines).
@@ -176,7 +200,8 @@ probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
 its bytes over 3.35 TB/s, one count of an operator's work whichever arm
 runs it) for the work it was timed on; the planned arms' launches come
 from the corpus model's main path, the generic arms' from
-``generic_main``, ``minplus``'s from ``dense_main`` and ``spec_main``. The
+``generic_main``, ``minplus``'s from ``dense_main``, ``spec_main`` and
+``parallel_rest``. The
 line before the card's line is that JSON object with one entry per kernel;
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -217,6 +242,10 @@ DENSE_SETUP_EVENTS = 6  # device kernels of a dense run_batch besides its steps 
 DENSE_SETUP_ALLOCS = 8  # blocks a dense run_batch allocates (the first carry and its pair)
 DENSE_HOST_STEPS = 200  # steps of the prefix whose enqueue gives the host's µs a step
 CLUSTER_EDGE = (1, 2, 8)  # pinned cluster sizes of the edge cases
+PAR_DATA, PAR_STATE, PAR_GRID = 2, 4, (2, 2)  # parallel_rest's shards: DP, TP, DP x TP
+PAR_REPEATS = 3  # warm runs of each parallel_rest entry point (median)
+PAR_PREFIX = 200  # steps of the prefix whose enqueue and profile give the µs a step
+TP_COLD_COPIES = 32  # 32 copies of a 5.9 MB TP block: each launch reads its block from HBM
 AUTO_STATES, AUTO_TRANS = 1024, 256  # the seeded dense-class model on which auto resolves to dense
 SPEC_PLAIN_PRODUCTS = ((0, 0), (7, 13), (19, 20), (20, 5))  # (new symbol, earlier) of the level-2 build
 SPEC_PLAIN_CHUNKS = 16  # chunks of the gathered decode held to the plain version
@@ -281,15 +310,55 @@ def checked_backtraces(label: str, fn, calls: list):
         fused.backtrace = kernel
 
 
+def stream_dp_scores(sdp, block):
+    """``StreamDP`` scores of the [T, B] ``block`` fed in ``STREAM_CHUNKS``."""
+    st = sdp.begin(block[0])
+    pos = 1
+    for w in STREAM_CHUNKS:
+        st = sdp.feed(st, block[pos : pos + w])
+        pos += w
+    return sdp.scores(st)
+
+
+def stream_dp_paths(sdp, block, lens):
+    """``StreamDP`` (path scores, paths) of ``block`` fed in
+    ``STREAM_CHUNKS``, lane ``i`` valid for its first ``lens[i]`` symbols."""
+    st = sdp.begin_path(block[0])
+    pos = 1
+    for w in STREAM_CHUNKS:
+        st = sdp.feed_path(st, block[pos : pos + w], valid=np.clip(lens - pos, 0, w))
+        pos += w
+    return sdp.path_finalize(st)
+
+
 def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_file: str,
-                  seed: int) -> None:
-    """One NCCL rank of ``tp_dist``: the banded model's TP decode on a
-    distributed group, card ``rank``; rank 0 writes what it decoded."""
+                  seed: int, rest_file: str) -> None:
+    """One NCCL rank of ``tp_dist``, card ``rank``: the banded model's TP
+    decode on a distributed group, then ``parallel_rest``'s entry points on
+    the corpus model over the world (dense DP, TP and, on 4 ranks, DP x TP
+    as 2 x 2; the structured TP; ``StreamDP``), each run twice, the second
+    run timed; rank 0 writes what it decoded."""
+    import pickle
+
     import torch
 
+    from spec_viterbi_tpu_torch import ViterbiDecoder
     from spec_viterbi_tpu_torch.io import generate_banded_hmm
+    from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
     from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
-    from spec_viterbi_tpu_torch.parallel import FusedTPDecoder, init_distributed, make_group
+    from spec_viterbi_tpu_torch.parallel import (
+        DATA_AXIS,
+        FusedTPDecoder,
+        StreamDP,
+        decode_batch_dp,
+        decode_batch_dp_tp,
+        decode_batch_structured_tp,
+        decode_tp,
+        init_distributed,
+        make_grid,
+        make_group,
+        state_block,
+    )
 
     dev = torch.device(f"cuda:{rank}")
     torch.cuda.set_device(dev)
@@ -309,31 +378,67 @@ def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_fil
             t0 = time.perf_counter()
             got = tp.decode_path_batch(seqs)
             secs.append(time.perf_counter() - t0)
+        out = {"scores": scores, "path_scores": np.stack([sc for sc, _ in got]),
+               "paths": np.stack([p for _, p in got]), "seconds": np.array(secs[2:])}
+
+        with open(rest_file, "rb") as f:
+            r = pickle.load(f)
+        corpus = r["hmm"]
+        dhmm = DeviceHMM.from_hmm(corpus, device=dev)
+        data, state = make_group(dev, axis=DATA_AXIS), make_group(dev)
+        tp_block = state_block(corpus, state, device=dev)  # this rank's [Nb, Np] rows
+        out["dense_tp_block"] = np.array(tp_block.a_t.shape)
+        sdp = StreamDP(ViterbiDecoder(corpus, mode="structured", device=dev)._fused, data)
+        runs = {
+            "dense_dp": lambda: np.stack(decode_batch_dp(dhmm, r["lanes_u"], data)),
+            "dense_tp": lambda: decode_tp(tp_block, r["lanes_u"][0], state),
+            "structured_tp": lambda: np.stack(decode_batch_structured_tp(corpus, r["ragged"], state)),
+            "stream_scores": lambda: stream_dp_scores(sdp, r["block"]),
+            "stream_paths": lambda: np.concatenate(stream_dp_paths(sdp, r["block_r"], r["lens_r"]), axis=1),
+        }
+        if world == 4:
+            grid = make_grid(dev, 2, 2, distributed=True)
+            grid_block = state_block(corpus, grid.state, device=dev)
+            runs["dense_dp_tp"] = lambda: np.stack(decode_batch_dp_tp(grid_block, r["lanes_u"], grid))
+        for name, fn in runs.items():
+            for _ in range(2):
+                torch.distributed.barrier(device_ids=[rank])
+                t0 = time.perf_counter()
+                out[name] = fn()
+                out[f"{name}_seconds"] = np.float64(time.perf_counter() - t0)
         if rank == 0:
-            np.savez(out_file, scores=scores, path_scores=np.stack([sc for sc, _ in got]),
-                     paths=np.stack([p for _, p in got]), seconds=np.array(secs[2:]))
+            np.savez(out_file, **out)
     finally:
         torch.distributed.destroy_process_group()
 
 
-def tp_dist(seed: int, uniform: list, scores, paths, tmp: str) -> None:
-    """``tp_dist``: TP scores and paths on min(4, cards) NCCL ranks, one
-    card each, bit-equal to the local group's (``scores``, ``paths``)."""
+def tp_dist(seed: int, uniform: list, scores, paths, tmp: str, rest: dict) -> None:
+    """``tp_dist``: TP scores and paths on 2 or 4 NCCL ranks, one card
+    each, bit-equal to the local group's (``scores``, ``paths``); then
+    ``parallel_rest``'s entry points on the corpus model over the ranks,
+    bit-equal to the unsharded results in ``rest``."""
     import multiprocessing as mp
+    import pickle
 
     import torch
+
+    from spec_viterbi_tpu_torch.hmm import pad_to_lane
 
     count = torch.cuda.device_count()
     if count < 2:
         phase("tp_dist", ran=False, why=f"{count} card")
         return
-    world = min(4, count)
+    world = 4 if count >= 4 else 2
     torch.cuda.empty_cache()
     np.save(f"{tmp}/uniform.npy", np.stack(uniform))
+    stream = rest["stream"]
+    with open(f"{tmp}/rest.pkl", "wb") as f:
+        pickle.dump({"hmm": rest["hmm"], "lanes_u": rest["uniform"][:DENSE_LANES], "ragged": rest["ragged"],
+                     "block": stream["block"], "block_r": stream["block_r"], "lens_r": stream["lens_r"]}, f)
     ctx = mp.get_context("spawn")
     procs = [
         ctx.Process(target=_tp_dist_rank, args=(r, world, f"{tmp}/rendezvous", f"{tmp}/uniform.npy",
-                                                f"{tmp}/tp_dist.npz", seed))
+                                                f"{tmp}/tp_dist.npz", seed, f"{tmp}/rest.pkl"))
         for r in range(world)
     ]
     t0 = time.perf_counter()
@@ -351,15 +456,27 @@ def tp_dist(seed: int, uniform: list, scores, paths, tmp: str) -> None:
                 p.join(10)
     check(not hung, f"tp_dist ranks {hung} finished within {SPAWN_SECONDS} s")
     check([p.exitcode for p in procs] == [0] * world, "every tp_dist rank exited 0")
+    dense = rest["dense"]
+    want = {"dense_dp": np.stack(dense["u"]), "dense_tp": dense["one"], "structured_tp": np.stack(rest["scores_r"]),
+            "stream_scores": stream["scores"],
+            "stream_paths": np.concatenate([stream["path_scores"], stream["paths"]], axis=1)}
+    if world == 4:
+        want["dense_dp_tp"] = np.stack(dense["u"])
     with np.load(f"{tmp}/tp_dist.npz") as z:
         check(np.array_equal(z["scores"], np.stack(scores)), "distributed TP scores == local group")
         check(np.array_equal(z["path_scores"], np.stack([sc for sc, _ in paths])),
               "distributed TP path scores == local group")
         check(np.array_equal(z["paths"], np.stack([p for _, p in paths])),
               "distributed TP paths == local group")
+        for name, w in want.items():
+            check(np.array_equal(z[name], w), f"{name} on {world} NCCL ranks == unsharded, bit for bit")
+        n = pad_to_lane(rest["hmm"].states_num)
+        check(z["dense_tp_block"].tolist() == [n // world, n], f"a dense TP rank holds its [{n // world}, {n}] block")
         warm = z["seconds"].tolist()
+        rest_secs = {name: float(z[f"{name}_seconds"]) for name in want}
     phase("tp_dist", ran=True, ranks=world, seconds=time.perf_counter() - t0, lanes=len(uniform),
-          bit_equal=True, decode_batch_seconds=warm[0], decode_path_batch_seconds=warm[1])
+          bit_equal=True, decode_batch_seconds=warm[0], decode_path_batch_seconds=warm[1],
+          parallel_rest_seconds=rest_secs, parallel_rest_entries=sorted(want))
 
 
 def generic_main(seed: int, lengths) -> tuple[dict, dict]:
@@ -492,12 +609,16 @@ def device_events(fn) -> dict:
                                     if e.device_type == torch.autograd.DeviceType.CUDA))
 
 
-def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_r, path_u0) -> dict:
+def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_r,
+                   path_u0) -> tuple[dict, dict]:
     """The phases ``dense_main``, ``dense_kernel_vs_plain`` and
     ``spec_main`` on the corpus model ``hmm``, and the ``time`` lines of
     ``svt_minplus``. ``scores_u`` ([512, n] on the card), ``scores_r`` and
     ``path_u0`` are the structured main path's uniform and ragged scores and
-    lane 0's path. Returns the ``minplus`` entry of the ``kernels`` line."""
+    lane 0's path. Returns the dense scores (``u``: the first 50 uniform
+    lanes' ``run_batch``, ``r``: the first 50 ragged ``decode_batch``,
+    ``one``: ``decode`` of the first uniform sequence) and the ``minplus``
+    entry of the ``kernels`` line."""
     import warnings
 
     import torch
@@ -843,9 +964,10 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
               bound_by="bytes" if all(by == "bytes" for _, by in launch_bounds) else "operations",
               distinct_operators_a_launch_mean=float(np.mean(distinct)),
               shape=tropical.minplus_shape(DENSE_LANES, n, n, 1, dev, i_contiguous=False))
+    dense = {"u": u_np, "r": dense_r, "one": dense_1}
     del spec2, dec, auto
     torch.cuda.empty_cache()
-    return {
+    return dense, {
         "name": "minplus", "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/tropical.cu",
         "replaces": "spec_viterbi_tpu/ops/tropical.py:89", "also_replaces": "spec_viterbi_tpu/ops/tropical.py:31-43",
         "launches": dense_launches + build_launches + spec_launches, "dense_main_launches": dense_launches,
@@ -859,13 +981,290 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
     }
 
 
-def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r, bt_calls: list) -> tuple[list, list]:
+def _settled(fn) -> float:
+    """Wall seconds of ``fn()`` with the device synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def parallel_rest(card: str, hmm, fd, uniform, ragged, scores_u, scores_r, dense: dict,
+                  stream: dict) -> dict:
+    """The phase ``parallel_rest``: the local forms of the dense DP, TP and
+    DP x TP decodes, the structured TP and DP and ``StreamDP`` on the
+    corpus model ``hmm`` (fused decoder ``fd``), each held bit-equal to the
+    unsharded result the smoke already has: ``dense`` (from
+    ``dense_and_spec``), ``scores_u``/``scores_r`` (the fused decoder's) and
+    ``stream`` (the ``stream`` phase's scores, path scores and paths). Then
+    the ``time`` lines of ``svt_minplus``'s two new shapes, each held to its
+    bound. Returns the launch count of ``svt_minplus`` and the results
+    ``tp_dist`` compares its NCCL ranks with."""
+    import torch
+
+    from spec_viterbi_tpu_torch.models.decoder import SUBLANE, DeviceHMM, _decode_scores_batch
+    from spec_viterbi_tpu_torch.ops import fused, tropical
+    from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+    from spec_viterbi_tpu_torch.parallel import (
+        DATA_AXIS,
+        StreamDP,
+        decode_batch_dp,
+        decode_batch_dp_tp,
+        decode_batch_structured_dp,
+        decode_batch_structured_tp,
+        decode_tp,
+        make_dp_tp_decode,
+        make_grid,
+        make_group,
+        make_structured_dp_decode,
+        make_structured_tp_decode,
+        make_tp_decode,
+    )
+    from spec_viterbi_tpu_torch.probes import bounds
+    from spec_viterbi_tpu_torch.probes.common import median_ms, profiled
+    from spec_viterbi_tpu_torch.utils.batching import pad_batch
+
+    dev = torch.device("cuda")
+    n_real = hmm.states_num
+    dhmm = DeviceHMM.from_hmm(hmm, device=dev)
+    n = dhmm.padded
+    em_t = dhmm.emissions.T
+    lanes_u, lanes_r = uniform[:DENSE_LANES], ragged[:DENSE_LANES]
+    data = make_group(dev, PAR_DATA, axis=DATA_AXIS)
+    state = make_group(dev, PAR_STATE)
+    grid = make_grid(dev, *PAR_GRID)
+    u_np = scores_u[:, :n_real].cpu().numpy()
+    steps = T_LEN - 1
+    lines = {}
+
+    def same(got, want) -> bool:
+        return len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+    def warm(fn) -> float:
+        """Median of PAR_REPEATS warm wall seconds (``fn`` has run once)."""
+        return float(np.median([_settled(fn) for _ in range(PAR_REPEATS)]))
+
+    def staged(seqs, multiple, min_t=1):
+        batch, lengths = pad_batch(seqs, multiple, min_t=min_t)
+        return (torch.as_tensor(batch.T.copy(), device=dev), torch.as_tensor(lengths, device=dev))
+
+    def per_step(enqueue, launches: int, kernel: str) -> dict:
+        """The host's µs a step of ``enqueue`` (PAR_PREFIX steps, no wait
+        for the device) against the device's µs: ``kernel``'s a launch and
+        all kernels' a step, and the idle share under ``torch.profiler``."""
+        k_us, busy, span = profiled(enqueue, kernel)
+        return {"host_us_per_step": host_us_per_step(enqueue, PAR_PREFIX),
+                "device_us_per_launch": k_us / launches if span and launches else None,
+                "device_busy_us_per_step": busy / PAR_PREFIX if span else None,
+                "idle_share": 1.0 - busy / span if span else None}
+
+    prefix_u = [s[: PAR_PREFIX + 1] for s in lanes_u]
+
+    # ---- dense DP: data 2, the 50 uniform and 50 ragged sequences ---------
+    tropical.reset_launches()
+    fused.reset_launches()
+    got_u = decode_batch_dp(dhmm, lanes_u, data)
+    got_r = decode_batch_dp(dhmm, lanes_r, data)
+    want = PAR_DATA * (steps + max(map(len, lanes_r)) - 1)
+    launched = {"dp": tropical.launches["minplus"]}
+    check(launched["dp"] == want and not any(fused.launches.values()),
+          f"decode_batch_dp: {launched['dp']} svt_minplus launches == {want}, no fused kernel")
+    check(same(got_u, dense["u"]), "decode_batch_dp uniform == dense run_batch, bit for bit")
+    check(same(got_r, dense["r"]), "decode_batch_dp ragged == dense decode_batch, bit for bit")
+    st, ln = staged(prefix_u, PAR_DATA * SUBLANE)
+    per = st.shape[1] // PAR_DATA
+    shard_lanes = [(st[:, d * per : (d + 1) * per].contiguous(), ln[d * per : (d + 1) * per].contiguous())
+                   for d in range(PAR_DATA)]
+    lines["decode_batch_dp"] = {
+        "shards": {"data": PAR_DATA}, "lanes": [DENSE_LANES, DENSE_LANES], "padded_lanes": int(per * PAR_DATA),
+        "launches": launched["dp"], "seconds_uniform": warm(lambda: decode_batch_dp(dhmm, lanes_u, data)),
+        "seconds_ragged": warm(lambda: decode_batch_dp(dhmm, lanes_r, data)),
+        **per_step(lambda: [_decode_scores_batch(dhmm.a, dhmm.pi, dhmm.emissions, o, g)
+                            for o, g in shard_lanes], PAR_DATA * PAR_PREFIX, "minplus"),
+        "launches_a_step": PAR_DATA}
+
+    # ---- dense TP: state 4 (Nb 608), one sequence of 3,500 ---------------
+    tropical.reset_launches()
+    got = decode_tp(dhmm, uniform[0], state)
+    launched["tp"] = tropical.launches["minplus"]
+    check(launched["tp"] == PAR_STATE * steps, f"decode_tp: {launched['tp']} launches == 4 x {steps}")
+    check(np.array_equal(got, dense["one"]), "decode_tp == dense decode, bit for bit")
+    tp_fn = make_tp_decode(state)
+    lines["decode_tp"] = {
+        "shards": {"state": PAR_STATE}, "block": [n // PAR_STATE, n], "launches": launched["tp"],
+        "seconds": warm(lambda: decode_tp(dhmm, uniform[0], state)),
+        **per_step(lambda: tp_fn(dhmm.a_t, dhmm.pi, dhmm.emissions, uniform[0][: PAR_PREFIX + 1]),
+                   PAR_STATE * PAR_PREFIX, "minplus"),
+        "launches_a_step": PAR_STATE}
+
+    # ---- dense DP x TP: data 2 x state 2, the 50 uniform sequences --------
+    tropical.reset_launches()
+    got = decode_batch_dp_tp(dhmm, lanes_u, grid)
+    launched["dp_tp"] = tropical.launches["minplus"]
+    check(launched["dp_tp"] == PAR_GRID[0] * PAR_GRID[1] * steps, f"decode_batch_dp_tp: {launched['dp_tp']} launches")
+    check(same(got, dense["u"]), "decode_batch_dp_tp == dense run_batch, bit for bit")
+    dp_tp_fn = make_dp_tp_decode(grid)
+    st, ln = staged(prefix_u, PAR_GRID[0] * SUBLANE)
+    nb, bd = n // PAR_GRID[1], st.shape[1] // PAR_GRID[0]
+    lines["decode_batch_dp_tp"] = {
+        "shards": dict(zip(("data", "state"), PAR_GRID)), "block": [nb, n], "lanes_a_data_shard": bd,
+        "launches": launched["dp_tp"], "seconds": warm(lambda: decode_batch_dp_tp(dhmm, lanes_u, grid)),
+        **per_step(lambda: dp_tp_fn(dhmm.a, dhmm.pi, em_t, st, ln), PAR_GRID[0] * PAR_GRID[1] * PAR_PREFIX,
+                   "minplus"),
+        "launches_a_step": PAR_GRID[0] * PAR_GRID[1]}
+
+    # ---- structured TP: state 4, 512 uniform and 512 ragged lanes ---------
+    fused.reset_launches()
+    tropical.reset_launches()
+    got_u = decode_batch_structured_tp(hmm, uniform, state)
+    got_r = decode_batch_structured_tp(hmm, ragged, state)
+    check(not any(fused.launches.values()) and not tropical.launches["minplus"],
+          "the structured TP launches no kernel of the port")
+    check(same(got_u, u_np), "decode_batch_structured_tp uniform == the fused decoder, bit for bit")
+    check(same(got_r, scores_r), "decode_batch_structured_tp ragged == the fused decoder, bit for bit")
+    sop = StructuredOperator.from_hmm(hmm)
+    stp_fn = make_structured_tp_decode(sop, state)
+    st, ln = staged([s[: PAR_PREFIX + 1] for s in uniform], SUBLANE, min_t=2)
+    ops = [torch.as_tensor(x, device=dev) for x in (sop.diag_vals, sop.row_vals, sop.col_vals)]
+    resv = torch.zeros((1, 1), device=dev)
+    pi = dhmm.pi
+    lines["decode_batch_structured_tp"] = {
+        "shards": {"state": PAR_STATE}, "lanes": [LANES, LANES],
+        "operator": {"diagonals": list(sop.diag_offsets), "rows": len(sop.row_idx), "cols": len(sop.col_idx),
+                     "residual": sop.residual_nnz},
+        "seconds_uniform": warm(lambda: decode_batch_structured_tp(hmm, uniform, state)),
+        "seconds_ragged": warm(lambda: decode_batch_structured_tp(hmm, ragged, state)),
+        **per_step(lambda: stp_fn(*ops, resv, em_t, pi, st, ln), 0, "none")}
+
+    # ---- structured DP: data 2, the 512 ragged lanes ----------------------
+    got_r = decode_batch_structured_dp(hmm, ragged, data)
+    check(same(got_r, scores_r), "decode_batch_structured_dp == the fused decoder, bit for bit")
+    sdp_fn = make_structured_dp_decode(sop, data)
+    st, ln = staged([s[: PAR_PREFIX + 1] for s in uniform], PAR_DATA * SUBLANE, min_t=2)
+    lines["decode_batch_structured_dp"] = {
+        "shards": {"data": PAR_DATA}, "lanes": LANES,
+        "seconds": warm(lambda: decode_batch_structured_dp(hmm, ragged, data)),
+        **per_step(lambda: sdp_fn(em_t, pi, st, ln), 0, "none")}
+
+    # ---- StreamDP: data 2, 512 lanes in the stream phase's chunks ---------
+    sdp = StreamDP(fd, data)
+    block, block_r, lens_r = stream["block"], stream["block_r"], stream["lens_r"]
+
+    def scores_stream():
+        return stream_dp_scores(sdp, block)
+
+    def path_stream():
+        return stream_dp_paths(sdp, block_r, lens_r)
+
+    fused.reset_launches()
+    got = scores_stream()
+    scores_counts = dict(fused.launches)
+    check(scores_counts == {**ZERO_LAUNCHES, "scores_masked_planned": PAR_DATA * len(STREAM_CHUNKS)},
+          f"StreamDP: one planned masked launch a shard a feed: {scores_counts}")
+    check(np.array_equal(got, stream["scores"]), "StreamDP scores == the single-device stream, bit for bit")
+    fused.reset_launches()
+    path_scores, paths = path_stream()
+    path_counts = dict(fused.launches)
+    k = PAR_DATA * len(STREAM_CHUNKS)
+    check(path_counts == {**ZERO_LAUNCHES, "scores_masked_planned": k, "path_planned": k, "backtrace": k},
+          f"StreamDP path: a feed, a path and a backtrace launch a shard a chunk: {path_counts}")
+    check(fd.path_supported(1536 + 1, batch=LANES // PAR_DATA), "every lane within the per-shard budget")
+    check(np.array_equal(path_scores, stream["path_scores"]) and np.array_equal(paths, stream["paths"]),
+          "StreamDP paths and scores == the single-device path stream, bit for bit")
+    lines["stream_dp"] = {
+        "shards": {"data": PAR_DATA}, "lanes": LANES, "chunks": list(STREAM_CHUNKS),
+        "launches": {"scores": scores_counts, "path": path_counts},
+        "seconds_scores": warm(scores_stream), "seconds_path": warm(path_stream)}
+    for name, line in lines.items():
+        phase("parallel_rest", entry=name, card=card, bit_equal=True, **line)
+
+    # ---- time lines of svt_minplus's two new shapes, each held to its bound
+    def time_line(**line):
+        phase("time", kernel="minplus", card=card, **line)
+        for key in ("ms", "kernel_ms"):
+            check(line[key] is None or line[key] >= line["bound_ms"],
+                  f"svt_minplus {line['what']}: {key} {line[key]} reads below its bound {line['bound_ms']}")
+
+    v = (dhmm.emissions[int(uniform[0][0])] + dhmm.pi).contiguous()
+    nb = n // PAR_STATE
+    blocks = [dhmm.a_t[r * nb : (r + 1) * nb] for r in range(PAR_STATE)]
+    cold = [blocks[c % PAR_STATE].clone() for c in range(TP_COLD_COPIES)]
+    em_blk = em_t[:nb]
+    out = torch.empty(nb, device=dev)
+    work = bounds.minplus(1, nb, n, 1, 1)
+    syms = uniform[0][1:].tolist()
+    t1 = minplus_timed(lambda: [tropical.dense_step_mv(cold[s % TP_COLD_COPIES], v, em_blk, o, out)
+                                for s, o in enumerate(syms)], steps)
+    whole = minplus_timed(lambda: decode_tp(dhmm, uniform[0], state), PAR_STATE * steps, repeats=1)
+    plain = median_ms(lambda: [tropical.dense_step_mv_plain(blocks[0], v, em_blk, o)
+                               for o in syms[:DENSE_PLAIN_STEPS]], repeats=DENSE_TIME_REPEATS)
+    time_line(what="TP block step, J = 1", block=[nb, n], steps=steps,
+              operator=f"{TP_COLD_COPIES} copies of the block in turn, each read from HBM", **t1,
+              us_per_step=t1["ms"] * 1e3 / steps, decode_tp_ms=whole["ms"],
+              resident_kernel_us_per_launch=whole["kernel_us_per_launch"], resident_idle_share=whole["idle_share"],
+              plain_steps=DENSE_PLAIN_STEPS, plain_ms=plain, plain_us_per_step=plain * 1e3 / DENSE_PLAIN_STEPS,
+              bound_ms=steps * work.bound()[0], bound_by=work.bound()[1],
+              shape=tropical.minplus_shape(1, nb, n, 1, dev, i_contiguous=False))
+    del cold
+    final = tp_fn(dhmm.a_t, dhmm.pi, dhmm.emissions, uniform[0])
+    for r in range(PAR_STATE):  # every state block, its em_t rows a strided view
+        rows = slice(r * nb, (r + 1) * nb)
+        for carry, o in ((v, syms[0]), (final, syms[-1])):
+            check(torch.equal(tropical.dense_step_mv(blocks[r], carry, em_t[rows], o, out),
+                              tropical.dense_step_mv_plain(blocks[r], carry, em_t[rows], o)),
+                  f"the TP block step of state shard {r} == plain, bit for bit")
+    for seqs, name in ((lanes_u, "uniform"), (lanes_r, "ragged")):  # each DP shard's 32-lane step
+        st, ln = staged(seqs, PAR_DATA * SUBLANE)
+        per = st.shape[1] // PAR_DATA
+        for d in range(PAR_DATA):
+            obs, lns = st[:, d * per : (d + 1) * per].contiguous(), ln[d * per : (d + 1) * per].contiguous()
+            carry = (em_t[:, obs[0].long()] + dhmm.pi[:, None]).contiguous()
+            out = torch.empty_like(carry)
+            # the last step, and the ragged set's step at which its shortest lane of the shard stops
+            t = st.shape[0] - 1 if name == "uniform" else int(lns[lns > 0].min())
+            check(torch.equal(tropical.dense_step(dhmm.a.T, carry, em_t, obs, lns, t, out),
+                              tropical.dense_step_plain(dhmm.a.T, carry, em_t, obs, lns, t)),
+                  f"the {name} DP shard {d} step ({per} lanes, t = {t}) == plain, bit for bit")
+    st, ln = staged(lanes_u, PAR_GRID[0] * SUBLANE)
+    bd = st.shape[1] // PAR_GRID[0]
+    obs, lns = st[:, :bd].contiguous(), ln[:bd].contiguous()
+    carry = (em_t[:, obs[0].long()] + dhmm.pi[:, None]).contiguous()
+    nb = n // PAR_GRID[1]
+    a_blk, em_blk = dhmm.a.T[nb:], em_t[nb:]
+    out = torch.empty((nb, bd), device=dev)
+    work = bounds.minplus(1, nb, n, bd, 1)
+    t2 = minplus_timed(lambda: [tropical.dense_step(a_blk, carry, em_blk, obs, lns, t, out, row0=nb)
+                                for t in range(1, T_LEN)], steps)
+    whole = minplus_timed(lambda: decode_batch_dp_tp(dhmm, lanes_u, grid), launched["dp_tp"], repeats=1)
+    plain = median_ms(lambda: [tropical.dense_step_plain(a_blk, carry, em_blk, obs, lns, t, nb)
+                               for t in range(1, DENSE_PLAIN_STEPS + 1)], repeats=DENSE_TIME_REPEATS)
+    check(torch.equal(tropical.dense_step(a_blk, carry, em_blk, obs, lns, 5, out, row0=nb),
+                      tropical.dense_step_plain(a_blk, carry, em_blk, obs, lns, 5, nb)),
+          "the DP x TP block step == plain, bit for bit")
+    time_line(what="DP x TP block step", block=[nb, n], lanes=bd, row0=nb, steps=steps, **t2,
+              us_per_step=t2["ms"] * 1e3 / steps, decode_batch_dp_tp_ms=whole["ms"],
+              decode_kernel_us_per_launch=whole["kernel_us_per_launch"], decode_idle_share=whole["idle_share"],
+              plain_steps=DENSE_PLAIN_STEPS, plain_ms=plain, plain_us_per_step=plain * 1e3 / DENSE_PLAIN_STEPS,
+              bound_ms=steps * work.bound()[0], bound_by=work.bound()[1],
+              shape=tropical.minplus_shape(1, nb, n, bd, dev))
+    torch.cuda.empty_cache()
+    return {"launches": sum(launched.values()), "dense_tp_block_kernel_us": t1["kernel_us_per_launch"],
+            "dp_tp_block_kernel_us": t2["kernel_us_per_launch"]}
+
+
+def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r, bt_calls: list,
+              rest_refs: dict) -> tuple[list, list]:
     """The phases ``tp_main``, ``tp_kernel_vs_plain``, ``tp_oracle``,
     ``dp``, ``tp_dist`` and the window kernels' ``time`` lines. ``fd``,
     ``ragged`` and ``scores_r`` are the corpus model's fused decoder, ragged
     set and ``decode_batch`` scores; the backtrace launches of a TP and a
     DP path call, each held to its plain version, add their misses to
-    ``bt_calls``. Returns the window kernels' entries of the ``kernels``
+    ``bt_calls``; ``rest_refs`` are the corpus model's inputs and results
+    that ``tp_dist`` holds the NCCL ranks of ``parallel_rest``'s entry
+    points to. Returns the window kernels' entries of the ``kernels``
     line, and the shapes of their launches as (name, window rows, CTAs)
     for the chain floor."""
     import torch
@@ -1051,7 +1450,7 @@ def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r, bt_calls: lis
 
     # ---- tp_dist: NCCL ranks, one card each ------------------------------
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        tp_dist(seed, uniform, scores_u, paths_u, tmp)
+        tp_dist(seed, uniform, scores_u, paths_u, tmp, rest_refs)
 
     # ---- times: the whole TP decode; kernel vs plain on the first chunks;
     # the unsharded kernels on the same model and lanes
@@ -1692,6 +2091,8 @@ def main() -> int:
               "path stream == decode_path_batch")
     stream_counts["path"] = dict(fused.launches)
     phase("stream", seconds=ssecs, launches=stream_counts, chunks=list(STREAM_CHUNKS))
+    stream_ref = {"block": block, "block_r": block_r, "lens_r": lens_r, "scores": got,
+                  "path_scores": scores_s, "paths": paths_s}
 
     # ---- every backtrace call of the main path again, each held to its
     # plain version and to the staged walk's emulation, which counts its
@@ -1707,8 +2108,17 @@ def main() -> int:
     check(np.array_equal(again[1], paths_s), "path stream finalize again")
 
     generic_counts, generic_errs = generic_main(args.seed, lengths)
-    minplus_entry = dense_and_spec(args.seed, card, hmm, uniform, ragged, scores_u, scores_r, paths_u[0])
-    window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r, bt_calls)
+    dense, minplus_entry = dense_and_spec(args.seed, card, hmm, uniform, ragged, scores_u, scores_r,
+                                          paths_u[0])
+    rest = parallel_rest(card, hmm, fd, uniform, ragged, scores_u, scores_r, dense, stream_ref)
+    minplus_entry["launches"] += rest["launches"]
+    minplus_entry.update(parallel_rest_launches=rest["launches"],
+                         tp_block_kernel_us=rest["dense_tp_block_kernel_us"],
+                         dp_tp_block_kernel_us=rest["dp_tp_block_kernel_us"])
+    rest_refs = {"hmm": hmm, "uniform": uniform, "ragged": ragged, "scores_r": scores_r,
+                 "dense": dense, "stream": stream_ref}
+    window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r, bt_calls,
+                                              rest_refs)
     main_calls = [c for c in bt_calls if not c["call"].startswith(("TP", "DP"))]
     lane_calls = sum(c["lanes"] for c in main_calls)
     phase("backtrace_misses", card=card, band=_build.BT_BAND, tile=_build.BT_TILE, ahead=_build.BT_AHEAD,

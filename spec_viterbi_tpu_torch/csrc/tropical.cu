@@ -15,10 +15,12 @@
 //
 // An optional epilogue makes one launch the decoder's whole step (G = 1):
 //
-//   C[i, j] = (t < len[j]) ? em[i, s_j] + min_k(...) : B[i, j]
+//   C[i, j] = (t < len[j]) ? em[i, s_j] + min_k(...) : B[row0 + i, j]
 //
 // with s_j = obs[j] (the batch step's symbols) or the scalar o (J = 1), and
-// the mask only where lengths are given. That is the JAX step
+// the mask only where lengths are given. row0 is 0 for the square step; a
+// state-sharded step computes a block of I rows of the K-row carry B, the
+// rows from row0 on. That is the JAX step
 // jnp.where(keep, em_t[:, s_t] + u_t, carry), one rounded add, so it is
 // bit-equal; with argmin and J = 1 the pointers go straight to the caller's
 // row of its pointer tensor.
@@ -97,12 +99,13 @@ struct MpEpi {
   const int* obs;          // [J] the step's symbols (nullptr: the scalar o)
   const int* len;          // [J] lengths (nullptr: every lane steps)
   int o, t;
+  int row0;                // B's row of C's row 0: a masked lane keeps B[row0 + i, j]
 };
 
 __device__ __forceinline__ float mp_epilogue(const MpEpi& e, float m, const float* bg, int i,
                                              int j, int J) {
   if (!e.em) return m;
-  if (e.len && !(e.t < __ldg(e.len + j))) return bg[(long long)i * J + j];  // the carry (I == K)
+  if (e.len && !(e.t < __ldg(e.len + j))) return bg[(long long)(e.row0 + i) * J + j];  // the carry
   const int s = e.obs ? __ldg(e.obs + j) : e.o;
   return __ldg(e.em + i * e.em_si + s * e.em_so) + m;
 }
@@ -718,17 +721,19 @@ extern "C" {
 // The caller allocates c and argmin, [g, i, j] each. em (nullptr: no
 // epilogue) with its strides over states and symbols, obs ([j] int32, or
 // nullptr and the scalar o), lengths ([j] int32 or nullptr) and t give the
-// decoder's step (g = 1; with lengths, i = k and b is the carry).
+// decoder's step (g = 1; with lengths, b is the carry and row0 + i <= k:
+// a masked lane keeps b[row0 + r, j] in c[r, j]).
 int svt_minplus(const float* a, const long long* a_idx, const float* b, float* c, int* argmin,
                 long long sa_g, long long sa_i, long long sa_k, int g, int i, int k, int j,
                 const float* em, long long em_si, long long em_so, const int* obs, int o,
-                const int* lengths, int t, void* stream) {
+                const int* lengths, int t, int row0, void* stream) {
   if (g <= 0 || i <= 0 || j <= 0) return 0;
   const bool i_contig = a_i_contig(sa_i, sa_k);
   MpShape s;
   int rc = minplus_shape(g, i, k, j, i_contig, argmin != nullptr, &s);
   if (rc) return rc;
-  const MpEpi epi = {em, em_si, em_so, obs, lengths, o, t};
+  if (lengths && (row0 < 0 || (long long)row0 + i > k)) return (int)cudaErrorInvalidValue;
+  const MpEpi epi = {em, em_si, em_so, obs, lengths, o, t, row0};
   rc = minplus_launch(s, i_contig, argmin != nullptr, (cudaStream_t)stream, nullptr, a, a_idx, b, c,
                       argmin, sa_g, sa_i, sa_k, g, i, k, j, epi);
   if (rc) return rc;

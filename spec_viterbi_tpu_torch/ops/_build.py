@@ -198,7 +198,7 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_fs_shape.restype = i32
     i64 = ctypes.c_longlong
     lib.svt_minplus.argtypes = ([vp] * 5 + [i64] * 3 + [i32] * 4  # the product
-                                + [vp, i64, i64, vp, i32, vp, i32]  # the step's epilogue
+                                + [vp, i64, i64, vp, i32, vp, i32, i32]  # the step's epilogue
                                 + [vp])
     lib.svt_minplus.restype = i32
     lib.svt_minplus_shape.argtypes = [i32] * 4 + [i64] * 2 + [i32] + [vp] * 2

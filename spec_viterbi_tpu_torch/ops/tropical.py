@@ -160,7 +160,7 @@ def _want(x: torch.Tensor | None, name: str, dtype, shape: tuple, device: torch.
 
 def _launch(a: torch.Tensor, a_idx, b: torch.Tensor, c: torch.Tensor, arg, sa_g: int, g: int,
             i: int, k: int, j: int, em_t=None, obs_ptr=None, o: int = 0, lengths=None, t: int = 0,
-            stream: int | None = None) -> None:
+            row0: int = 0, stream: int | None = None) -> None:
     """One launch of ``svt_minplus`` on the operands' device (the epilogue
     where ``em_t`` is given); counts it."""
     lib = _build.library()
@@ -172,7 +172,7 @@ def _launch(a: torch.Tensor, a_idx, b: torch.Tensor, c: torch.Tensor, arg, sa_g:
             None if arg is None else arg.data_ptr(), sa_g, a.stride(-2), a.stride(-1), g, i, k, j,
             None if em_t is None else em_t.data_ptr(),
             0 if em_t is None else em_t.stride(0), 0 if em_t is None else em_t.stride(1),
-            obs_ptr, o, None if lengths is None else lengths.data_ptr(), t, stream,
+            obs_ptr, o, None if lengths is None else lengths.data_ptr(), t, row0, stream,
         )
     _build.check(lib, rc, "svt_minplus")
     launches["minplus"] += 1
@@ -240,26 +240,26 @@ def minplus(
 
 
 def dense_step_plain(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: torch.Tensor,
-                     lengths: torch.Tensor | None, t: int) -> torch.Tensor:
+                     lengths: torch.Tensor | None, t: int, row0: int = 0) -> torch.Tensor:
     """Plain version of :func:`dense_step`: the product
     (:func:`minplus_plain`), then the JAX package's step,
-    ``where(t < lengths, em_t[:, obs[t]] + u, v)``."""
+    ``where(t < lengths, em_t[:, obs[t]] + u, v[row0 : row0 + n_out])``."""
     u = minplus_plain(a_view[None], v[None])[0]
     v_new = em_t[:, obs[t].long()] + u
     if lengths is None:
         return v_new
-    return torch.where((t < lengths)[None, :], v_new, v)
+    return torch.where((t < lengths)[None, :], v_new, v[row0 : row0 + u.shape[0]])
 
 
 def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: torch.Tensor,
                lengths: torch.Tensor | None, t: int, out: torch.Tensor, *,
-               stream: int | None = None) -> torch.Tensor:
+               row0: int = 0, stream: int | None = None) -> torch.Tensor:
     """One step of the dense batched decode in one ``svt_minplus`` launch
     (counted under ``minplus``), the emission add and the length mask in
     its epilogue::
 
         out[i, b] = em_t[i, obs[t, b]] + min_k a_view[i, k] + v[k, b]   where t < lengths[b]
-                  = v[i, b]                                            elsewhere
+                  = v[row0 + i, b]                                     elsewhere
 
     (every lane steps where ``lengths`` is None). ``a_view`` [n, n] f32, any
     strides (the decoder passes the transposed view of the untransposed
@@ -268,16 +268,24 @@ def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: t
     [T, B] int32, contiguous; ``lengths`` [B] int32. Symbols must lie in
     ``[0, E)``: the card does not check them. ``stream`` (a CUDA stream
     handle) saves the lookup of the current stream a step. Returns
-    ``out``. A CPU tensor takes the plain version."""
+    ``out``. A CPU tensor takes the plain version.
+
+    A step may also be one row block of a state-sharded step: ``a_view``
+    [n_out, K] (the block's rows of the operator), ``v`` the whole [K, B]
+    carry, ``out`` and ``em_t`` with ``n_out`` rows; a masked lane keeps
+    rows ``row0 .. row0 + n_out - 1`` of ``v``."""
     if v.device.type == "cpu":
-        return out.copy_(dense_step_plain(a_view, v, em_t, obs, lengths, t))
+        return out.copy_(dense_step_plain(a_view, v, em_t, obs, lengths, t, row0))
     if v.device.type != "cuda":
         raise ValueError(f"no kernel for device {v.device}")
     dev = v.device
-    n, lanes = v.shape
-    _want(v, "v", torch.float32, (n, lanes), dev)
+    k, lanes = v.shape
+    n = a_view.shape[0]
+    if not (0 <= row0 and row0 + n <= k):
+        raise ValueError(f"rows {row0} .. {row0 + n} of the block lie outside the carry's {k}")
+    _want(v, "v", torch.float32, (k, lanes), dev)
     _want(out, "out", torch.float32, (n, lanes), dev)
-    _want(a_view, "a_view", torch.float32, (n, n), dev, contiguous=False)
+    _want(a_view, "a_view", torch.float32, (n, k), dev, contiguous=False)
     _want(em_t, "em_t", torch.float32, (n, em_t.shape[1]), dev, contiguous=False)
     _want(obs, "obs", torch.int32, (obs.shape[0], lanes), dev)
     if lengths is not None:
@@ -287,9 +295,9 @@ def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: t
     if not 0 <= t < obs.shape[0]:
         raise ValueError(f"t = {t} outside obs's {obs.shape[0]} steps")
     if n and lanes:
-        _launch(a_view, None, v, out, None, 0, 1, n, n, lanes, em_t=em_t,
+        _launch(a_view, None, v, out, None, 0, 1, n, k, lanes, em_t=em_t,
                 obs_ptr=obs.data_ptr() + t * obs.stride(0) * obs.element_size(), lengths=lengths,
-                t=t, stream=stream)
+                t=t, row0=row0, stream=stream)
     return out
 
 

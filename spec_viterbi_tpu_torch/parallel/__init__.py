@@ -1,11 +1,19 @@
-"""More than one shard: state-sharded (TP) and data-parallel (DP) decode.
+"""More than one shard: data-parallel (DP), state-sharded (TP) and DP × TP
+decode.
 
-The port of ``spec_viterbi_tpu/parallel``, for the fused kernels: the
-chunked-halo TP decode of banded operators (:class:`FusedTPDecoder`) and
-the fused DP entry points, over a shard group (:func:`make_group`, the
-counterpart of ``make_mesh``) held by one process or spread over the
-ranks of ``torch.distributed``. Still to port: ``StreamDP``, the halo TP
-of coupled operators (``structured_tp``), dense TP and time parallelism.
+The port of ``spec_viterbi_tpu/parallel`` but time parallelism, over shard
+groups in place of a mesh: :func:`make_group` (one axis) and
+:func:`make_grid` (``data`` × ``state``), the counterparts of
+``make_mesh``, held by one process on one device or spread over the ranks
+of ``torch.distributed``. It holds the chunked-halo TP decode of banded
+operators on the fused kernels (:class:`FusedTPDecoder`), the fused DP
+entry points and :class:`StreamDP`, the dense DP, TP and DP × TP decodes
+on ``svt_minplus`` (a TP rank holding its state block of the model,
+:func:`state_block`), and the halo TP and DP of coupled structured operators
+(``structured_tp``). ``batch_sharding`` and ``replicated`` name shardings
+of a JAX mesh and have no counterpart here: a group splits the lanes or
+the states itself. Still to port: ``decode_time_parallel`` and
+``make_time_parallel_decode``.
 """
 
 from spec_viterbi_tpu_torch.parallel.distributed import init_distributed, process_info
@@ -15,12 +23,29 @@ from spec_viterbi_tpu_torch.parallel.mesh import (
     STATE_AXIS,
     TIME_AXIS,
     DistributedGroup,
+    Grid,
     LocalGroup,
+    make_grid,
     make_group,
 )
 from spec_viterbi_tpu_torch.parallel.sharded import (
+    StreamDP,
+    decode_batch_dp,
     decode_batch_dp_fused,
+    decode_batch_dp_tp,
     decode_path_batch_dp_fused,
+    decode_tp,
+    make_dp_tp_decode,
+    make_fused_dp,
+    make_tp_decode,
+    state_block,
+)
+from spec_viterbi_tpu_torch.parallel.structured_tp import (
+    decode_batch_structured_dp,
+    decode_batch_structured_tp,
+    make_structured_dp_decode,
+    make_structured_tp_decode,
+    structured_tp_supported,
 )
 
 __all__ = [
@@ -29,11 +54,26 @@ __all__ = [
     "TIME_AXIS",
     "LocalGroup",
     "DistributedGroup",
+    "Grid",
     "make_group",
+    "make_grid",
     "init_distributed",
     "process_info",
+    "decode_batch_dp",
     "decode_batch_dp_fused",
+    "decode_batch_dp_tp",
     "decode_path_batch_dp_fused",
+    "make_fused_dp",
+    "StreamDP",
+    "decode_tp",
+    "make_dp_tp_decode",
+    "make_tp_decode",
+    "state_block",
+    "decode_batch_structured_dp",
+    "decode_batch_structured_tp",
+    "make_structured_dp_decode",
+    "make_structured_tp_decode",
+    "structured_tp_supported",
     "FusedTPDecoder",
     "fused_tp_supported",
 ]

@@ -20,6 +20,19 @@ neighbours: :meth:`DistributedGroup.exchange_halo` and
 :meth:`DistributedGroup.min_reduce` (the sharded backtrace). In a local
 group the halo exchange is the decoder's swap of two global carries, and
 its pointers are global, so no reduce is needed.
+
+The per-step collectives of the dense and structured TP decodes allocate
+nothing: :meth:`all_gather_into` gathers in place into a buffer
+allocated once a call, whose rows at this rank's place are its part, and
+:meth:`min_reduce_` reduces in place. A local group has them too, with
+nothing to do: its shards write their rows of the one global carry, and a
+local caller reduces over its shards itself before the call.
+
+:func:`make_grid` is the counterpart of ``make_mesh(data=D, state=S)``:
+a ``data`` group and a ``state`` group, as :class:`Grid`. Its distributed
+form lays the D × S ranks out row-major (rank ``d·S + s``) and gives each
+rank the process group of its row (``state``) and of its column
+(``data``).
 """
 
 from __future__ import annotations
@@ -52,26 +65,37 @@ class LocalGroup:
         """Every shard's part, concatenated along dim 0 in shard order."""
         return torch.cat(parts, dim=0)
 
+    def all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``out``, unchanged: the shards of a local group write their
+        parts into it themselves."""
+        return out
+
+    def min_reduce_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, unchanged: a local caller has reduced over its shards."""
+        return x
+
 
 class DistributedGroup:
-    """One shard of ``axis`` per rank of the ``torch.distributed`` world,
-    this rank's on ``device`` (a CUDA device under NCCL, the CPU under
-    gloo)."""
+    """One shard of ``axis`` per rank of a ``torch.distributed`` process
+    group (the world by default, or ``group``, one made by
+    :func:`make_grid`), this rank's on ``device`` (a CUDA device under NCCL,
+    the CPU under gloo). ``rank`` and ``size`` are read within the group."""
 
     is_local = False
 
-    def __init__(self, device: torch.device | str, axis: str = STATE_AXIS):
+    def __init__(self, device: torch.device | str, axis: str = STATE_AXIS, group=None):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("no torch.distributed process group: call init_distributed() first")
-        self.size = dist.get_world_size()
-        self.rank = dist.get_rank()
+        self.pg = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
         self.device = torch.device(device)
         self.axis = axis
         if self.device.type == "cuda" and self.device.index is not None:
             torch.cuda.set_device(self.device)
         # NCCL wants its first operation to involve every rank before any
         # point-to-point batch (batch_isend_irecv)
-        dist.all_reduce(torch.zeros(1, device=self.device))
+        dist.all_reduce(torch.zeros(1, device=self.device), group=group)
 
     def shards(self) -> tuple[int]:
         """The shard index this process holds: its rank."""
@@ -81,15 +105,30 @@ class DistributedGroup:
         """Every rank's part, concatenated along dim 0 in rank order."""
         (x,) = parts
         x = x.contiguous()
-        out = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(out, x)
-        return torch.cat(out, dim=0)
+        out = torch.empty((self.size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+        return self.all_gather_into(out, x)
+
+    def all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (contiguous), concatenated along dim 0 in rank
+        order into ``out`` (contiguous, ``size`` times ``x``'s rows);
+        returns ``out``. ``x`` may be this rank's rows of ``out`` itself
+        (an in-place gather)."""
+        dist.all_gather_into_tensor(out, x, group=self.pg)
+        return out
 
     def min_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise min of ``x`` over the ranks (a new tensor)."""
-        x = x.contiguous().clone()
-        dist.all_reduce(x, op=dist.ReduceOp.MIN)
+        return self.min_reduce_(x.contiguous().clone())
+
+    def min_reduce_(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise min of ``x`` (contiguous) over the ranks, in place;
+        returns ``x``."""
+        dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self.pg)
         return x
+
+    def _peer(self, r: int) -> int:
+        """The world rank of this group's rank ``r``."""
+        return r if self.pg is None else dist.get_global_rank(self.pg, r)
 
     def exchange_halo(self, win: torch.Tensor, h_lo: int, block: int, h_hi: int) -> None:
         """Refresh the halo rows of this rank's ``win`` [h_lo + block +
@@ -102,16 +141,17 @@ class DistributedGroup:
         interior = win[h_lo : h_lo + block]
         lo_halo, hi_halo = win[:h_lo], win[h_lo + block :]
         ops = []
+        peer, pg = self._peer, self.pg
         if h_lo:
             if r + 1 < k:
-                ops.append(dist.P2POp(dist.isend, interior[block - h_lo :], r + 1))
+                ops.append(dist.P2POp(dist.isend, interior[block - h_lo :], peer(r + 1), pg))
             if r > 0:
-                ops.append(dist.P2POp(dist.irecv, lo_halo, r - 1))
+                ops.append(dist.P2POp(dist.irecv, lo_halo, peer(r - 1), pg))
         if h_hi:
             if r > 0:
-                ops.append(dist.P2POp(dist.isend, interior[:h_hi], r - 1))
+                ops.append(dist.P2POp(dist.isend, interior[:h_hi], peer(r - 1), pg))
             if r + 1 < k:
-                ops.append(dist.P2POp(dist.irecv, hi_halo, r + 1))
+                ops.append(dist.P2POp(dist.irecv, hi_halo, peer(r + 1), pg))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -130,3 +170,37 @@ def make_group(
     if shards is None:
         return DistributedGroup(device, axis)
     return LocalGroup(shards, device, axis)
+
+
+class Grid:
+    """A ``data`` group and a ``state`` group: the port's counterpart of a
+    two-axis mesh ``make_mesh(data=D, state=S)``."""
+
+    def __init__(self, data, state):
+        if data.axis != DATA_AXIS or state.axis != STATE_AXIS:
+            raise ValueError(f"a grid takes a {DATA_AXIS!r} and a {STATE_AXIS!r} group")
+        self.data = data
+        self.state = state
+        self.shape = {DATA_AXIS: data.size, STATE_AXIS: state.size}
+
+
+def make_grid(device: torch.device | str, data: int = 1, state: int = 1, *,
+              distributed: bool = False) -> Grid:
+    """A :class:`Grid` of ``data`` × ``state`` shards on ``device``: D·S
+    shards held by this process (local), or, with ``distributed``, one a
+    rank of a world of exactly D·S ranks. Rank ``d·S + s`` holds data shard
+    ``d`` and state shard ``s``; every rank makes every row's and every
+    column's process group, in the same order, as ``dist.new_group``
+    requires, and keeps its own two."""
+    if not distributed:
+        return Grid(LocalGroup(data, device, DATA_AXIS), LocalGroup(state, device, STATE_AXIS))
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("no torch.distributed process group: call init_distributed() first")
+    world, me = dist.get_world_size(), dist.get_rank()
+    if world != data * state:
+        raise ValueError(f"a {data} x {state} grid needs {data * state} ranks, the world has {world}")
+    rows = [dist.new_group([d * state + s for s in range(state)]) for d in range(data)]
+    cols = [dist.new_group([d * state + s for d in range(data)]) for s in range(state)]
+    d, s = divmod(me, state)
+    return Grid(DistributedGroup(device, DATA_AXIS, cols[s]),
+                DistributedGroup(device, STATE_AXIS, rows[d]))

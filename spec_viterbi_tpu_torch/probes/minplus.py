@@ -212,7 +212,7 @@ def main() -> int:
         def launch():  # the step's ctypes call with its arguments ready
             lib.svt_minplus(a_tn.data_ptr(), None, v.data_ptr(), c.data_ptr(), None, 0, 1, N, 1, N,
                             N, DENSE_LANES, em_t.data_ptr(), 1, N, obs_ptr, 0, lengths.data_ptr(), t,
-                            stream)
+                            0, stream)
 
         def device_context():
             with torch.cuda.device(dev):

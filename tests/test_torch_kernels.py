@@ -1299,6 +1299,76 @@ def test_dense_step_equals_plain_on_card(cuda_device, n, lanes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,row0,lanes", [(2432, 608, 1216, 28), (2432, 1216, 1216, 32),
+                                               (1001, 333, 500, 17), (130, 1, 129, 3)])
+def test_dense_step_row0_equals_plain_on_card(cuda_device, n, rows, row0, lanes):
+    """The state-sharded batch step: a block of ``rows`` output states of a
+    [K, B] carry, whose masked lanes keep the carry's rows from ``row0``,
+    at a DP x TP block and at ragged edges: bit-equal to the plain version
+    and to the square step's rows; the square step keeps its bits with
+    ``row0`` 0."""
+    rng = np.random.default_rng(n + row0 + lanes)
+    a = _minplus_mat(rng, (1, n, n), cuda_device)[0]
+    v = _minplus_mat(rng, (1, n, lanes), cuda_device)[0]
+    em = _minplus_mat(rng, (1, 5, n), cuda_device)[0]
+    obs = torch.as_tensor(rng.integers(0, 5, size=(12, lanes)).astype(np.int32), device=cuda_device)
+    lengths = torch.as_tensor(np.resize(np.array([0, 1, 5, 6, 7, 12], np.int32), lanes),
+                              device=cuda_device)
+    blk = slice(row0, row0 + rows)
+    for t, lens in ((6, lengths), (6, None), (0, lengths)):
+        square = tropical.dense_step(a.T, v, em.T, obs, lens, t, torch.empty_like(v))
+        assert torch.equal(square, tropical.dense_step(a.T, v, em.T, obs, lens, t, torch.empty_like(v),
+                                                       row0=0))
+        out = torch.full((rows, lanes), -1.0, device=cuda_device)
+        tropical.reset_launches()
+        tropical.dense_step(a.T[blk], v, em.T[blk], obs, lens, t, out, row0=row0)
+        want = tropical.dense_step_plain(a.T[blk], v, em.T[blk], obs, lens, t, row0)
+        torch.cuda.synchronize()
+        assert tropical.launches == {"minplus": 1}
+        assert torch.equal(out, want) and torch.equal(out, square[blk])
+        if lens is not None:
+            frozen = lens <= t
+            assert torch.equal(out[:, frozen], v[blk][:, frozen])
+    with pytest.raises(ValueError, match="outside the carry"):
+        tropical.dense_step(a.T[blk], v, em.T[blk], obs, lengths, 1, out, row0=n - rows + 1)
+    with pytest.raises(ValueError, match="a_view"):
+        tropical.dense_step(a.T[blk], v[:-1].contiguous(), em.T[blk], obs, lengths, 1, out, row0=0)
+
+
+@pytest.mark.cuda
+def test_sharded_dense_decodes_go_through_minplus_on_card(cuda_device):
+    """Dense DP, TP and DP x TP in their local forms on the card: one
+    ``svt_minplus`` launch a shard a step, scores bit-equal to the CPU's
+    (the plain version) and to the oracle."""
+    from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
+    from spec_viterbi_tpu_torch.parallel import (
+        DATA_AXIS,
+        decode_batch_dp,
+        decode_batch_dp_tp,
+        decode_tp,
+        make_grid,
+        make_group,
+    )
+
+    hmm = generate_random_hmm(200, trans_per_state=60, emit_range=5, seed=9)
+    dev = DeviceHMM.from_hmm(hmm, device=cuda_device)
+    rng = np.random.default_rng(9)
+    seqs = _seqs(rng, [40, 1, 17, 33, 40], hmm.emit_num)
+    want = [viterbi_scores_oracle(hmm, s) for s in seqs]
+    tropical.reset_launches()
+    got = decode_batch_dp(dev, seqs, make_group(cuda_device, 2, axis=DATA_AXIS))
+    assert tropical.launches["minplus"] == 2 * 39
+    got_tp = [decode_tp(dev, s, make_group(cuda_device, 4)) for s in seqs]
+    assert tropical.launches["minplus"] == 2 * 39 + 4 * sum(len(s) - 1 for s in seqs)
+    got_grid = decode_batch_dp_tp(dev, seqs, make_grid(cuda_device, 2, 4))
+    assert tropical.launches["minplus"] == 2 * 39 + 4 * sum(len(s) - 1 for s in seqs) + 8 * 39
+    for g, t, d, w in zip(got, got_tp, got_grid, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(t, w)
+        np.testing.assert_array_equal(d, w)
+
+
+@pytest.mark.cuda
 def test_dense_step_wrappers_check_inputs(cuda_device):
     a = torch.zeros((8, 8), device=cuda_device)
     v = torch.zeros((8, 3), device=cuda_device)

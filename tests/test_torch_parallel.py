@@ -22,6 +22,7 @@ import torch
 import torch_parallel_workers as workers
 
 from spec_viterbi_tpu_torch import viterbi_path_oracle
+from spec_viterbi_tpu_torch.hmm import pad_to_lane
 from spec_viterbi_tpu_torch.ops.fused import FusedStructuredDecoder
 from spec_viterbi_tpu_torch.parallel import (
     FusedTPDecoder,
@@ -129,6 +130,76 @@ def test_dp_paths_equal_single_process(world):
         for i, (sc, pa) in enumerate(fd.decode_path_batch(seqs, bucketed=False)):
             assert np.array_equal(ranks[0][f"dp_{name}_path_scores_{i}"], sc), (name, i)
             assert np.array_equal(ranks[0][f"dp_{name}_path_{i}"], pa), (name, i)
+
+
+def test_dense_and_structured_ranks_equal_local_forms(world):
+    """Dense DP, TP and DP x TP (a 2 x 1 grid on 2 ranks, 2 x 2 on 4) and
+    the structured TP over the ranks: bit-equal to the local forms and to
+    the oracle."""
+    from spec_viterbi_tpu_torch import viterbi_scores_oracle
+    from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
+    from spec_viterbi_tpu_torch.parallel import (
+        DATA_AXIS,
+        decode_batch_dp,
+        decode_batch_dp_tp,
+        decode_batch_structured_tp,
+        decode_tp,
+        make_grid,
+    )
+
+    size, ranks = world
+    hmm, _ = workers.dp_model()
+    dev = DeviceHMM.from_hmm(hmm, device="cpu")
+    seqs = workers.sequences(hmm.emit_num, workers.DP_LENGTHS, seed=7)
+    want = np.stack([viterbi_scores_oracle(hmm, s) for s in seqs])
+    local = {
+        "dense_dp": decode_batch_dp(dev, seqs, make_group("cpu", size, axis=DATA_AXIS)),
+        "dense_tp": [decode_tp(dev, s, make_group("cpu", size)) for s in seqs],
+        "dense_dp_tp": decode_batch_dp_tp(dev, seqs, make_grid("cpu", *workers.grid_shape(size))),
+        "structured_tp": decode_batch_structured_tp(hmm, seqs, make_group("cpu", size)),
+    }
+    for key, got in local.items():
+        assert np.array_equal(ranks[0][key], np.stack(got)), key
+        assert np.array_equal(ranks[0][key], want), key
+
+
+def test_dense_tp_ranks_hold_only_their_state_block(world):
+    """A rank of the dense TP (and of DP x TP's state axis) holds its
+    [Nb, Np] block of each operator, Nb of pi and [E, Nb] emissions, and
+    no more storage than that: Nb x Np, not Np x Np."""
+    size, ranks = world
+    hmm, _ = workers.dp_model()
+    n = pad_to_lane(hmm.states_num)
+    for name, shards in (("tp", size), ("dp_tp", workers.grid_shape(size)[1])):
+        nb = n // shards
+        want = np.array([[nb, n], [n, nb], [nb, 0], [hmm.emit_num, nb]])
+        for r, got in enumerate(ranks):
+            assert np.array_equal(got[f"{name}_block_shapes"], want), (name, r)
+            assert np.array_equal(got[f"{name}_block_bytes"], 4 * want[:, 0] * np.maximum(want[:, 1], 1)), (name, r)
+
+
+def test_stream_dp_ranks_equal_local_group_and_single_device(world):
+    """StreamDP over the ranks: scores, path scores and ragged paths equal
+    the local group's and the single-device stream's."""
+    from spec_viterbi_tpu_torch.parallel import DATA_AXIS, StreamDP
+
+    size, ranks = world
+    fd, _ = _dp_single()
+    block, lens = workers.stream_block(fd.emit_num)
+    local = workers.run_stream(StreamDP(fd, make_group("cpu", size, axis=DATA_AXIS)), block, lens)
+    single = workers.run_stream(_SingleStream(fd), block, lens)
+    for key, got, one in zip(("stream_scores", "stream_path_scores", "stream_paths"), local, single):
+        assert np.array_equal(ranks[0][key], got), key
+        assert np.array_equal(got, one), key
+
+
+class _SingleStream:
+    """The single-device stream of ``fd`` under StreamDP's method names."""
+
+    def __init__(self, fd):
+        self.begin, self.feed, self.scores = fd.stream_begin, fd.stream_feed, fd.stream_scores
+        self.begin_path, self.feed_path = fd.stream_begin_path, fd.stream_feed_path
+        self.path_finalize = fd.stream_path_finalize
 
 
 def test_single_process_without_a_world(monkeypatch):

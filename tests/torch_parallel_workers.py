@@ -13,16 +13,24 @@ import numpy as np
 import torch
 
 from spec_viterbi_tpu_torch.io.generators import generate_banded_hmm, generate_profile_hmm
+from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
 from spec_viterbi_tpu_torch.ops.fused import FusedStructuredDecoder
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.parallel import (
     DATA_AXIS,
     FusedTPDecoder,
+    StreamDP,
+    decode_batch_dp,
     decode_batch_dp_fused,
+    decode_batch_dp_tp,
+    decode_batch_structured_tp,
     decode_path_batch_dp_fused,
+    decode_tp,
     init_distributed,
+    make_grid,
     make_group,
     process_info,
+    state_block,
 )
 
 # (offsets, chunk) of the banded model the TP ranks decode, by world size
@@ -52,6 +60,33 @@ def tp_lengths(chunk: int) -> list[int]:
 
 
 DP_LENGTHS = [3, 17, 40, 2, 9, 1, 33]  # 7 lanes: not a multiple of 2 or 4
+STREAM_SPLITS = (12, 0, 20)  # chunks after the first symbol: 33 symbols a lane
+
+
+def grid_shape(world: int) -> tuple[int, int]:
+    """(data, state) of the DP x TP grid a world of ranks forms."""
+    return 2, world // 2
+
+
+def stream_block(emit: int) -> tuple[np.ndarray, np.ndarray]:
+    """The streamed lanes [T, B] and their ragged lengths."""
+    rng = np.random.default_rng(6)
+    return rng.integers(0, emit, size=(33, 7)).astype(np.int32), np.array([33, 5, 1, 20, 33, 13, 30])
+
+
+def run_stream(sdp, block, lens=None):
+    """(scores, path scores, paths) of ``sdp`` (a ``StreamDP``) over
+    ``block`` in ``STREAM_SPLITS``; the path stream with per-lane valid
+    counts where ``lens`` is given."""
+    st = sdp.begin(block[0])
+    pst = sdp.begin_path(block[0])
+    pos = 1
+    for w in STREAM_SPLITS:
+        st = sdp.feed(st, block[pos : pos + w])
+        valid = None if lens is None else np.clip(lens - pos, 0, w)
+        pst = sdp.feed_path(pst, block[pos : pos + w], valid=valid)
+        pos += w
+    return (sdp.scores(st), *sdp.path_finalize(pst))
 
 
 def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
@@ -84,5 +119,25 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
         for i, (v, p) in enumerate(decode_path_batch_dp_fused(fd, seqs, group)):
             out[f"dp_{name}_path_scores_{i}"] = v
             out[f"dp_{name}_path_{i}"] = p
+
+    # the dense, structured and streaming entry points on the same model
+    dev = DeviceHMM.from_hmm(hmm, device="cpu")
+    seqs = sequences(hmm.emit_num, DP_LENGTHS, seed=7)
+    state = make_group("cpu")
+    grid = make_grid("cpu", *grid_shape(world), distributed=True)
+    tp_block = state_block(hmm, state, device="cpu")
+    grid_block = state_block(hmm, grid.state, device="cpu")
+    out["dense_dp"] = np.stack(decode_batch_dp(dev, seqs, group))
+    out["dense_tp"] = np.stack([decode_tp(tp_block, s, state) for s in seqs])
+    out["dense_dp_tp"] = np.stack(decode_batch_dp_tp(grid_block, seqs, grid))
+    for name, blk in (("tp", tp_block), ("dp_tp", grid_block)):
+        # what the rank holds of the model: shapes and bytes of a_t, a, pi, emissions
+        parts = (blk.a_t, blk.a, blk.pi, blk.emissions)
+        out[f"{name}_block_shapes"] = np.array([list(p.shape) + [0] * (2 - p.dim()) for p in parts])
+        out[f"{name}_block_bytes"] = np.array([p.untyped_storage().nbytes() for p in parts])
+    out["structured_tp"] = np.stack(decode_batch_structured_tp(hmm, seqs, state))
+    block, lens = stream_block(hmm.emit_num)
+    out["stream_scores"], out["stream_path_scores"], out["stream_paths"] = run_stream(
+        StreamDP(fd, group), block, lens)
     np.savez(f"{out_dir}/rank{rank}.npz", **out)
     torch.distributed.destroy_process_group()
