@@ -49,7 +49,7 @@ exits non-zero:
     finalize again, every ``svt_backtrace`` launch held to
     ``backtrace_plain`` and to the staged walk's emulation
     (``probes/emulation.py``) on its own pointer tensor, and the same for
-    a TP and a DP path call (steps 17 and 20): the ``backtrace_misses``
+    a TP and a DP path call (steps 18 and 21): the ``backtrace_misses``
     line, the emulation's misses a lane of each call; then ``fs_shape``,
     the shape ``svt_scores_fs`` takes at 512, 256 and 128 lanes (threads a
     lane, lanes a CTA, registers, CTAs an SM);
@@ -117,27 +117,46 @@ exits non-zero:
     ``em_t``) on the first and the last carry, each DP shard's 32-lane
     step of both sets (the ragged one where its shortest lane stops) and
     the DP x TP block step;
-17. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
+17. ``time_parallel``: ``TimeParallelDecoder`` (``ops/time_parallel.py``) on
+    this model and the first uniform sequence, block lengths 4, 8 and 16,
+    each with the scan and the tree compose: ``decode`` and
+    ``decode_path(seq, engine=fd)``, with the launch counts read around one
+    call (``svt_minplus`` two a compose step or level and two a block of
+    the fold; ``svt_path_planned`` for the blocks' remat and for the tail;
+    one ``svt_backtrace``); scores with the +inf pattern of the serial
+    one-lane ``decode`` (the FS kernel) and within ±1.0 of it, paths equal
+    to ``fd.decode_path_batch([seq])``'s, the k = 8 scan bit-equal to the
+    same decoder on the CPU; every new ``svt_minplus`` shape, every path
+    launch and every walk held to its plain version on the same operands;
+    warm seconds (median of 3) beside the serial decode's, the speedup,
+    the split (compose, fold, tail, remat, walk) and the fold's host µs a
+    block against its device µs and idle share; then the dense SP
+    (``decode_time_parallel``, a local time group of 4, the first 1,000
+    symbols) within ±1.0 of the dense decode; the ``time`` lines of every
+    new ``svt_minplus`` shape, each held to its bound;
+18. ``tp_main``: the state-sharded decode of a seeded banded model (2,432
     states, offsets (1, 3), 4 symbols) on a local group of 4 shards, chunk
     16: ``FusedTPDecoder.decode_batch`` and ``decode_path_batch`` on a
     uniform (512 × 3,500) and a ragged set (the lengths of step 4), with
     the launch counts read around each call (219 window launches a call,
     one backtrace a path call); scores, paths and the global pointer
     tensor bit-equal to the unsharded kernels';
-18. ``tp_kernel_vs_plain``: both window kernels against their plain
+19. ``tp_kernel_vs_plain``: both window kernels against their plain
     versions on the first 4 chunks, uniform and ragged, in the local form
     and in the rank form of every shard (one window, window-local
     pointers), and ``decode_batch_emulated(check_path_kernel=True)`` on
     128 lanes;
-19. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
+20. ``tp_oracle``: TP paths and scores against ``viterbi_path_oracle`` on
     a prefix and on a seeded tie-heavy banded model: bit-equal;
-20. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
+21. ``dp``: the fused DP entry points on a world-size-1 NCCL group,
     bit-equal to the single-device decode;
-21. ``tp_dist``: with two or more cards, TP on 2 or 4 NCCL ranks,
+22. ``tp_dist``: with two or more cards, TP on 2 or 4 NCCL ranks,
     bit-equal to the local group, then ``parallel_rest``'s dense DP, TP,
     structured TP and ``StreamDP`` over those ranks (and DP x TP as 2 x 2
-    on 4), bit-equal to the unsharded results; with one card it says so;
-22. time kernel and plain version of the window kernels (the whole TP
+    on 4), bit-equal to the unsharded results, and the dense SP over
+    ``time``, bit-equal to a local group of as many shards; with one card
+    it says so;
+23. time kernel and plain version of the window kernels (the whole TP
     decode, and kernel vs plain on the first 4 chunks, beside the
     unsharded kernels on the same model and lanes); then both window
     kernels in both launch forms through the decoder's chunk loops
@@ -146,7 +165,7 @@ exits non-zero:
     host's µs a chunk and the device's idle share; the device time of one
     launch against its steps (0 to 1,024); and an ``occupancy_*_window``
     line for each kernel;
-23. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
+24. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
     uniform set, with the probe kernels' launch counts read around that
     run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
     their drift verdict, the two-symbol step, staged emissions), S2 (the
@@ -162,7 +181,7 @@ exits non-zero:
     bit-equal to its plain version); then each
     probe kernel against its plain version on a 64-step slice, every
     class, scheme and flag, bit-equal;
-24. time kernel and plain version of the scores kernels at the uniform
+25. time kernel and plain version of the scores kernels at the uniform
     shape and the path kernels at one uniform path call (median of 5; the
     plain path scans on fewer repeats, as their lines say), each arm of
     the masked and path kernels on its own line; both arms of the masked
@@ -172,7 +191,7 @@ exits non-zero:
     their bounds (the generic arms on the same calls, marked as off the
     corpus model's main path). The FS kernel's and the backtrace's
     ``time``, ``rank`` and ``kernels`` entries carry their chain floors.
-25. ``spec_struct``: ``StructuredSpecializedViterbi(level=2)`` on the
+26. ``spec_struct``: ``StructuredSpecializedViterbi(level=2)`` on the
     corpus model: the factored form (the fused decoder) through
     ``run_spec_batch`` on both sets and ``run_spec`` on one sequence, with
     the launch counts read around that run (one FS launch a uniform call,
@@ -181,16 +200,16 @@ exits non-zero:
     PyTorch, no kernel) on 8 uniform and 4 ragged lanes: within ±1.0 of the
     dense scores and bit-equal to the same composed code on the CPU; the
     host seconds of each form on those lanes;
-26. ``bench``: the headline line (``spec_viterbi_tpu_torch.bench.headline``,
+27. ``bench``: the headline line (``spec_viterbi_tpu_torch.bench.headline``,
     the entry point's default inputs: this model and the first 50 uniform
     sequences) at full size: 16 pre-staged batches of 512 x 3,500, the
     dense baseline, the ``empty`` floor at 2,432 x 512, the bit-equality
     gate;
-27. ``bench_sweep``: both ``.dat`` sweeps (``bench/bench_viterbi.py``)
+28. ``bench_sweep``: both ``.dat`` sweeps (``bench/bench_viterbi.py``)
     over this model and a 502-state profile model on the 50 sequences,
     2 timed runs a cell, the spec sweep's prep once; NaN exactly where the
     8 GB memory policy says;
-28. ``bench_ragged``: the ragged bench (``bench/bench_ragged.py``) on this
+29. ``bench_ragged``: the ragged bench (``bench/bench_ragged.py``) on this
     model with the ragged set's lengths, both path columns with their
     peak allocated memory against the pointer budget (``path_peak``
     lines).
@@ -200,8 +219,9 @@ probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
 its bytes over 3.35 TB/s, one count of an operator's work whichever arm
 runs it) for the work it was timed on; the planned arms' launches come
 from the corpus model's main path, the generic arms' from
-``generic_main``, ``minplus``'s from ``dense_main``, ``spec_main`` and
-``parallel_rest``. The
+``generic_main``, ``minplus``'s from ``dense_main``, ``spec_main``,
+``parallel_rest`` and ``time_parallel``, which adds its launches of the
+planned path arm and the backtrace to theirs. The
 line before the card's line is that JSON object with one entry per kernel;
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -250,6 +270,9 @@ AUTO_STATES, AUTO_TRANS = 1024, 256  # the seeded dense-class model on which aut
 SPEC_PLAIN_PRODUCTS = ((0, 0), (7, 13), (19, 20), (20, 5))  # (new symbol, earlier) of the level-2 build
 SPEC_PLAIN_CHUNKS = 16  # chunks of the gathered decode held to the plain version
 J1_COLD_COPIES = 8  # operators the J = 1 time lines take in turn: 190 MB, well past the 50 MB L2
+TPAR_KS = (4, 8, 16)  # block lengths of the time-parallel decoder, each with both compose schedules
+TPAR_REPEATS = 3  # warm runs of each time-parallel call and part (median)
+SP_SHARDS, SP_PREFIX = 4, 1000  # the dense SP: a local time group of 4, the first 1,000 symbols
 TP_PATH_LANES = 256  # the pointer comparison and the path timing
 TP_PLAIN_CHUNKS = 4  # chunks of the kernel-vs-plain checks and timings
 TP_EMULATED_LANES = 128
@@ -336,8 +359,8 @@ def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_fil
     """One NCCL rank of ``tp_dist``, card ``rank``: the banded model's TP
     decode on a distributed group, then ``parallel_rest``'s entry points on
     the corpus model over the world (dense DP, TP and, on 4 ranks, DP x TP
-    as 2 x 2; the structured TP; ``StreamDP``), each run twice, the second
-    run timed; rank 0 writes what it decoded."""
+    as 2 x 2; the structured TP; ``StreamDP``; the dense SP over ``time``),
+    each run twice, the second run timed; rank 0 writes what it decoded."""
     import pickle
 
     import torch
@@ -348,11 +371,13 @@ def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_fil
     from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
     from spec_viterbi_tpu_torch.parallel import (
         DATA_AXIS,
+        TIME_AXIS,
         FusedTPDecoder,
         StreamDP,
         decode_batch_dp,
         decode_batch_dp_tp,
         decode_batch_structured_tp,
+        decode_time_parallel,
         decode_tp,
         init_distributed,
         make_grid,
@@ -395,6 +420,7 @@ def _tp_dist_rank(rank: int, world: int, init_file: str, data_file: str, out_fil
             "structured_tp": lambda: np.stack(decode_batch_structured_tp(corpus, r["ragged"], state)),
             "stream_scores": lambda: stream_dp_scores(sdp, r["block"]),
             "stream_paths": lambda: np.concatenate(stream_dp_paths(sdp, r["block_r"], r["lens_r"]), axis=1),
+            "sp": lambda: decode_time_parallel(corpus, r["lanes_u"][0][:SP_PREFIX], make_group(dev, axis=TIME_AXIS)),
         }
         if world == 4:
             grid = make_grid(dev, 2, 2, distributed=True)
@@ -416,19 +442,24 @@ def tp_dist(seed: int, uniform: list, scores, paths, tmp: str, rest: dict) -> No
     """``tp_dist``: TP scores and paths on 2 or 4 NCCL ranks, one card
     each, bit-equal to the local group's (``scores``, ``paths``); then
     ``parallel_rest``'s entry points on the corpus model over the ranks,
-    bit-equal to the unsharded results in ``rest``."""
+    bit-equal to the unsharded results in ``rest``, and the dense SP over
+    the ranks, bit-equal to a local time group of as many shards."""
     import multiprocessing as mp
     import pickle
 
     import torch
 
     from spec_viterbi_tpu_torch.hmm import pad_to_lane
+    from spec_viterbi_tpu_torch.parallel import TIME_AXIS, decode_time_parallel, make_group
 
     count = torch.cuda.device_count()
     if count < 2:
         phase("tp_dist", ran=False, why=f"{count} card")
         return
     world = 4 if count >= 4 else 2
+    # the dense SP on a local time group of as many shards as ranks
+    sp_local = decode_time_parallel(rest["hmm"], rest["uniform"][0][:SP_PREFIX],
+                                    make_group(torch.device("cuda"), world, axis=TIME_AXIS))
     torch.cuda.empty_cache()
     np.save(f"{tmp}/uniform.npy", np.stack(uniform))
     stream = rest["stream"]
@@ -459,7 +490,7 @@ def tp_dist(seed: int, uniform: list, scores, paths, tmp: str, rest: dict) -> No
     dense = rest["dense"]
     want = {"dense_dp": np.stack(dense["u"]), "dense_tp": dense["one"], "structured_tp": np.stack(rest["scores_r"]),
             "stream_scores": stream["scores"],
-            "stream_paths": np.concatenate([stream["path_scores"], stream["paths"]], axis=1)}
+            "stream_paths": np.concatenate([stream["path_scores"], stream["paths"]], axis=1), "sp": sp_local}
     if world == 4:
         want["dense_dp_tp"] = np.stack(dense["u"])
     with np.load(f"{tmp}/tp_dist.npz") as z:
@@ -1253,6 +1284,198 @@ def parallel_rest(card: str, hmm, fd, uniform, ragged, scores_u, scores_r, dense
     torch.cuda.empty_cache()
     return {"launches": sum(launched.values()), "dense_tp_block_kernel_us": t1["kernel_us_per_launch"],
             "dp_tp_block_kernel_us": t2["kernel_us_per_launch"]}
+
+
+def _checked_kernels(fn, shapes: dict, remats: list):
+    """Run ``fn()`` with the first ``svt_minplus`` launch of every shape
+    (operand shapes and A's strides) held to ``minplus_plain`` on the same
+    operands, the operands kept in ``shapes`` for the time lines, and every
+    path launch held to ``path_plain`` (carry and pointers), its shape
+    appended to ``remats``; bit for bit. Returns ``fn()``."""
+    import torch
+
+    from spec_viterbi_tpu_torch.ops import fused, tropical
+
+    minplus, path = tropical.minplus, fused.path
+
+    def checked_minplus(a, b, a_idx=None, argmin=False, out=None):
+        c = minplus(a, b, a_idx, argmin, out)
+        key = (tuple(a.shape), tuple(a.stride()), tuple(b.shape))
+        if key not in shapes:
+            check(a_idx is None and not argmin, f"svt_minplus {key}: a plain product")
+            check(torch.equal(c, tropical.minplus_plain(a, b)), f"svt_minplus {key} == minplus_plain, bit for bit")
+            shapes[key] = (a, b)
+        return c
+
+    def checked_path(t, em, v0, obs, lengths):
+        out, src = path(t, em, v0, obs, lengths)
+        want_out, want_src = fused.path_plain(t, em.T, v0, obs, lengths)
+        check(torch.equal(out, want_out) and torch.equal(src, want_src),
+              f"the path launch of {v0.shape[1]} lanes x {obs.shape[0]} steps == path_plain, bit for bit")
+        remats.append({"lanes": v0.shape[1], "steps": obs.shape[0], "planned": isinstance(t, fused.FsTables)})
+        return out, src
+
+    tropical.minplus, fused.path = checked_minplus, checked_path
+    try:
+        return fn()
+    finally:
+        tropical.minplus, fused.path = minplus, path
+
+
+def time_parallel(card: str, hmm, dec, fd, seq, serial_path) -> dict:
+    """The phase ``time_parallel``: ``TimeParallelDecoder`` on the corpus
+    model and one 3,500-symbol sequence, for each block length in
+    ``TPAR_KS`` and both compose schedules, ``decode`` and
+    ``decode_path(seq, engine=fd)``, against the serial one-lane decode
+    (``dec.decode``, the FS kernel) and ``fd.decode_path_batch([seq])``;
+    then the dense SP (``decode_time_parallel`` on a local time group of
+    ``SP_SHARDS``, the first ``SP_PREFIX`` symbols) against the dense
+    decode. Every new ``svt_minplus`` shape, every path launch and every
+    walk is held to its plain version; the k = 8 scan also to the same
+    decoder on the CPU. Returns the kernels' launches in the counted runs."""
+    import statistics
+
+    import torch
+
+    from spec_viterbi_tpu_torch import ViterbiDecoder
+    from spec_viterbi_tpu_torch.ops import fused, tropical
+    from spec_viterbi_tpu_torch.ops.time_parallel import TimeParallelDecoder
+    from spec_viterbi_tpu_torch.parallel import TIME_AXIS, decode_time_parallel, make_group
+    from spec_viterbi_tpu_torch.probes import bounds
+    from spec_viterbi_tpu_torch.probes.common import median_ms, profiled
+
+    dev = torch.device("cuda")
+    sop = fd.sop
+    n, n_real = sop.n, hmm.states_num
+    em, pi = hmm.emission_matrix(pad_to=n), hmm.start_vector(pad_to=n)
+    seq_t = torch.as_tensor(seq, device=dev)
+    steps = len(seq) - 1
+
+    def warm(fn) -> float:
+        """Median of TPAR_REPEATS wall seconds, after one run."""
+        fn()
+        return statistics.median(_settled(fn) for _ in range(TPAR_REPEATS))
+
+    def drift(got, want) -> float:
+        check(np.array_equal(np.isinf(got), np.isinf(want)), "the same +inf pattern as the serial scores")
+        fin = np.isfinite(want)
+        err = float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+        check(err <= 1.0, f"within the ±1.0 contract of the serial scores: {err}")
+        return err
+
+    serial = dec.decode(seq)
+    fd_scores, fd_path = fd.decode_path_batch([seq])[0]
+    check(np.array_equal(fd_path, serial_path), "the serial fused path == decode_path_batch's lane 0")
+    serial_s = {"decode": warm(lambda: dec.decode(seq)),
+                "decode_path_batch": warm(lambda: fd.decode_path_batch([seq]))}
+    phase("time_parallel_serial", card=card, states=n_real, n=n, symbols=len(seq), seconds=serial_s)
+
+    shapes, remats, walks, launched, runs = {}, [], [], {}, []
+    for k in TPAR_KS:
+        for compose in ("scan", "tree"):
+            label = f"k = {k} {compose}"
+            tp = TimeParallelDecoder(sop, em, pi, k=k, compose=compose, device=dev)
+            nb, tail = tp.plan(len(seq))
+            first = checked_backtraces(f"time parallel {label}", lambda: _checked_kernels(
+                lambda: tp.decode_path(seq, engine=fd), shapes, remats), walks)
+            fused.reset_launches()
+            tropical.reset_launches()
+            scores = tp.decode(seq)
+            decode_launches = {"minplus": tropical.launches["minplus"], **{
+                name: c for name, c in fused.launches.items() if c}}
+            fused.reset_launches()
+            tropical.reset_launches()
+            path_scores, path = tp.decode_path(seq, engine=fd)
+            counts = {"minplus": tropical.launches["minplus"], **dict(fused.launches)}
+            compose_launches = 2 * (k - 1 if compose == "scan" else k.bit_length() - 1)
+            want = {**ZERO_LAUNCHES, "minplus": compose_launches + 2 * nb, "path_planned": 1 + (tail > 0),
+                    "backtrace": 1}
+            check(counts == want, f"{label}: launches {counts} == {want}")
+            check(decode_launches == {"minplus": want["minplus"]}, f"{label}: decode launches {decode_launches}")
+            for name in ("minplus", "path_planned", "backtrace"):
+                launched[name] = launched.get(name, 0) + counts[name]
+            check(np.array_equal(scores, path_scores) and np.array_equal(first[0], scores)
+                  and np.array_equal(first[1], path), f"{label}: decode == decode_path == the checked run")
+            err = drift(scores, serial)
+            check(np.array_equal(path, fd_path), f"{label}: path == the serial fused path")
+            line = {"run": label, "k": k, "compose": compose, "blocks": nb, "tail": tail, "slots": tp.r1 * k,
+                    "band": tp.w_band, "launches": counts, "max_drift": err, "path_equal_serial": True}
+            if (k, compose) == (8, "scan"):
+                tp_cpu = TimeParallelDecoder(sop, em, pi, k=k, compose=compose, device="cpu")
+                fd_cpu = fused.FusedStructuredDecoder(sop, em, pi, device="cpu")
+                t0 = time.perf_counter()
+                cpu_scores, cpu_path = tp_cpu.decode_path(seq, engine=fd_cpu)
+                check(np.array_equal(cpu_scores, scores) and np.array_equal(cpu_path, path)
+                      and np.array_equal(tp_cpu.decode(seq), scores), f"{label}: == the CPU's plain versions, bit for bit")
+                line.update(bit_equal_cpu=True, cpu_path_seconds=time.perf_counter() - t0)
+            line["decode_s"] = warm(lambda: tp.decode(seq))
+            line["decode_path_s"] = warm(lambda: tp.decode_path(seq, engine=fd))
+            line["speedup_vs_serial"] = serial_s["decode"] / line["decode_s"]
+            line["path_speedup_vs_serial"] = serial_s["decode_path_batch"] / line["decode_path_s"]
+            # the split: compose, fold, tail, the block and tail remat launches, the walk
+            syms = seq_t[1 : 1 + nb * k].long().reshape(nb, k)
+            v0 = tp._em_t[:, int(seq[0])] + tp._pi
+            ops = tp._compose_blocks(syms)
+            v_blocks, fronts = tp._fold(v0, *ops)
+            obs = seq_t[1 : 1 + nb * k].reshape(nb, k).T.contiguous()
+            fronts_t = fronts.T.contiguous()
+            carry, tail_obs = v_blocks[:, None].contiguous(), seq_t[1 + nb * k :, None].contiguous()
+            src = fused.path(fd._path_arm, fd.em, fronts_t, obs, None)[1]
+            tsrc = fused.path(fd._path_arm, fd.em, carry, tail_obs, None)[1]
+            src_all = torch.cat([src.transpose(0, 1).reshape(nb * k, 1, n), tsrc]).contiguous()
+            v_end = tp._tail(v_blocks, seq[1 + nb * k :].tolist()) if tail else v_blocks
+            last = torch.argmin(v_end).to(torch.int32)[None]
+            line["split_s"] = {  # one run each, every part warm from the runs above
+                "compose": _settled(lambda: tp._compose_blocks(syms)), "fold": _settled(lambda: tp._fold(v0, *ops)),
+                "tail": _settled(lambda: tp._tail(v_blocks, seq[1 + nb * k :].tolist())),
+                "remat_blocks": _settled(lambda: fused.path(fd._path_arm, fd.em, fronts_t, obs, None)),
+                "remat_tail": _settled(lambda: fused.path(fd._path_arm, fd.em, carry, tail_obs, None)),
+                "walk": _settled(lambda: fused.backtrace(src_all, last))}
+            k_us, busy, span = profiled(lambda: tp._fold(v0, *ops), "minplus")
+            line["fold"] = {"blocks": nb, "launches": 2 * nb,
+                            "host_us_per_block": host_us_per_step(lambda: tp._fold(v0, *ops), nb, repeats=1),
+                            "device_busy_us_per_block": busy / nb if span else None,
+                            "minplus_device_us_per_launch": k_us / (2 * nb) if span else None,
+                            "idle_share": 1.0 - busy / span if span else None}
+            del ops, src, tsrc, src_all
+            runs.append(line)
+            phase("time_parallel", card=card, **line)
+
+    # ---- the dense SP: a local time group, the first SP_PREFIX symbols ---
+    sp_seq = seq[:SP_PREFIX]
+    group = make_group(dev, SP_SHARDS, axis=TIME_AXIS)
+    want = ViterbiDecoder(hmm, mode="dense", device=dev).decode(sp_seq)
+    first = _checked_kernels(lambda: decode_time_parallel(hmm, sp_seq, group), shapes, remats)
+    tropical.reset_launches()
+    t0 = time.perf_counter()
+    got = decode_time_parallel(hmm, sp_seq, group)
+    sp_s = time.perf_counter() - t0
+    sp_launches = tropical.launches["minplus"]
+    block = -(-(SP_PREFIX - 1) // SP_SHARDS)
+    check(sp_launches == SP_SHARDS * (block + 1), f"decode_time_parallel: {sp_launches} svt_minplus launches")
+    check(np.array_equal(got, first), "decode_time_parallel twice, bit for bit")
+    sp_err = drift(got, want)
+    launched["minplus"] += sp_launches
+    phase("time_parallel_sp", card=card, shards=SP_SHARDS, symbols=SP_PREFIX, block=block, launches=sp_launches,
+          seconds=sp_s, max_drift_vs_dense=sp_err, products=SP_SHARDS * block)
+
+    # ---- time lines of every new svt_minplus shape, each held to its bound
+    for (a_shape, a_stride, b_shape), (a, b) in shapes.items():
+        g, i, kk = b_shape[0], a_shape[1], b_shape[1]
+        j = b_shape[2]
+        work = bounds.minplus(g, i, kk, j, a_shape[0])
+        ms = median_ms(lambda: tropical.minplus(a, b))
+        plain_ms = median_ms(lambda: tropical.minplus_plain(a, b), repeats=2)
+        line = {"what": "time parallel", "g": g, "i": i, "k": kk, "j": j, "a_stride": list(a_stride), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": work.bound()[0], "bound_by": work.bound()[1],
+                "shape": tropical.minplus_shape(g, i, kk, j, dev, i_contiguous=a_stride[-2] == 1 and i > 1)}
+        phase("time", kernel="minplus", card=card, **line)
+        check(ms >= line["bound_ms"], f"svt_minplus {a_shape} x {b_shape}: {ms} ms reads below its bound")
+    phase("time_parallel_checks", card=card, minplus_shapes=len(shapes), remat_launches=remats,
+          walks=walks, bit_equal=True)
+    shapes.clear()
+    torch.cuda.empty_cache()
+    return launched
 
 
 def tp_and_dp(seed: int, card: str, lengths, fd, ragged, scores_r, bt_calls: list,
@@ -2115,6 +2338,9 @@ def main() -> int:
     minplus_entry.update(parallel_rest_launches=rest["launches"],
                          tp_block_kernel_us=rest["dense_tp_block_kernel_us"],
                          dp_tp_block_kernel_us=rest["dp_tp_block_kernel_us"])
+    tpar = time_parallel(card, hmm, dec, fd, uniform[0], paths_u[0][1])
+    minplus_entry["launches"] += tpar["minplus"]
+    minplus_entry["time_parallel_launches"] = tpar["minplus"]
     rest_refs = {"hmm": hmm, "uniform": uniform, "ragged": ragged, "scores_r": scores_r,
                  "dense": dense, "stream": stream_ref}
     window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r, bt_calls,
@@ -2271,6 +2497,10 @@ def main() -> int:
          "shape": f"{lanes} lanes x {steps} steps", **chain.get(name, {})}
         for name, src, replaces, launched, err, lanes in entries
     ] + window_kernels + probe_kernels + [minplus_entry]
+    for e in kernels:  # the time-parallel phase's launches of the fused kernels
+        if e["name"] in ("path_planned", "backtrace"):
+            e["launches"] += tpar[e["name"]]
+            e["time_parallel_launches"] = tpar[e["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

@@ -1,8 +1,8 @@
-"""Sharded decoding over ``data`` and ``state`` shard groups: DP, TP, DP × TP.
+"""Sharded decoding over ``data``, ``state`` and ``time`` shard groups: DP,
+TP, DP × TP and SP.
 
-The port of ``spec_viterbi_tpu/parallel/sharded.py`` but its time-parallel
-entry points. Every function takes a shard group
-(:func:`~spec_viterbi_tpu_torch.parallel.mesh.make_group`) or a grid
+The port of ``spec_viterbi_tpu/parallel/sharded.py``. Every function
+takes a shard group (:func:`~spec_viterbi_tpu_torch.parallel.mesh.make_group`) or a grid
 (:func:`~spec_viterbi_tpu_torch.parallel.mesh.make_grid`) where the JAX
 package takes a mesh, and runs on the group's device, in its local form
 (every shard on one device) or over the ranks of ``torch.distributed``:
@@ -22,14 +22,21 @@ package takes a mesh, and runs on the group's device, in its local form
   :func:`decode_batch_dp_tp`): a step launches one batch step on the
   state shard's row block of the transposed operator, the masked lanes
   keeping the carry's rows from ``row0 = r·Nb``, then gathers the data
-  shard's ``[Np, Bd]`` carry over ``state``.
+  shard's ``[Np, Bd]`` carry over ``state``;
+- **SP**, time parallelism (:func:`make_time_parallel_decode`,
+  :func:`decode_time_parallel`): each ``time`` shard composes the dense
+  operator of its block of symbols, one ``svt_minplus`` product a symbol
+  (``dispatch.matmul_tn``); the group gathers the ``[S, Np, Np]`` blocks
+  and every process folds them into the start vector (``dispatch.step_mv``).
 
 A TP rank holds only its state block of the model (:func:`state_block`).
 Every shard writes its block of the next carry, a buffer allocated once a
 call, and the group gathers the carry in place; in the local form the
 blocks already make it and nothing moves. Every score is bit-equal to the
 unsharded decoders': each candidate is one rounded add and the min is
-exact, so the split cannot change a bit.
+exact, so the split cannot change a bit. The SP's scores are bit-equal to
+the JAX function's (the same products in the same order) and within ±1.0
+of serial decode: a block operator pre-combines the steps' values.
 """
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ from spec_viterbi_tpu_torch.models.decoder import (
     _stream_of,
     resolve_device,
 )
-from spec_viterbi_tpu_torch.ops import tropical
+from spec_viterbi_tpu_torch.ops import dispatch, tropical
 from spec_viterbi_tpu_torch.ops.fused import BB, PathStreamState, StreamState
-from spec_viterbi_tpu_torch.parallel.mesh import DATA_AXIS, STATE_AXIS
+from spec_viterbi_tpu_torch.parallel.mesh import DATA_AXIS, STATE_AXIS, TIME_AXIS
 from spec_viterbi_tpu_torch.utils.batching import pad_batch
 
 
@@ -467,3 +474,80 @@ def decode_batch_dp_tp(dev: DeviceHMM, seqs: list[np.ndarray], grid) -> list[np.
     seqs_t, lengths = _dense_batch(dev, seqs, grid.data.size * SUBLANE)
     v = make_dp_tp_decode(grid)(dev.a, dev.pi, dev.emissions.T, seqs_t, lengths)
     return _rows(dev, v, len(seqs))
+
+
+# --------------------------------------------------------------------------
+# SP: time-parallel decode via associative operator composition
+# --------------------------------------------------------------------------
+
+
+def _identity_op(n: int) -> np.ndarray:
+    """Tropical identity: 0 on the diagonal, +inf elsewhere."""
+    m = np.full((n, n), np.inf, dtype=np.float32)
+    np.fill_diagonal(m, 0.0)
+    return m
+
+
+def make_time_parallel_decode(group):
+    """A time-parallel dense decoder ``fn(ops_t, v0, obs) → [Np]`` on
+    every process of the ``time`` group.
+
+    ``ops_t`` [E+1, Np, Np] holds the level-1 operators pre-transposed (TN)
+    with the identity at index ``E``, so ``obs`` (the ``T−1`` symbols after
+    the first on the host, padded with ``E`` to ``S × block``) splits
+    evenly. Each shard this process holds composes its block operator
+    ``M_block = M_{o_k} ⊗ … ⊗ M_{o_1}`` from the identity, one ``dispatch.matmul_tn``
+    (an ``svt_minplus`` product on the TN view) a symbol; the group gathers
+    the ``[S, Np, Np]`` blocks (a local group holds them all already), and
+    every process folds them into ``v0`` with S ``dispatch.step_mv``
+    launches."""
+    _want_axis(group, TIME_AXIS)
+
+    def sp_decode(ops_t, v0, obs) -> torch.Tensor:
+        n = ops_t.shape[1]
+        block = obs.shape[0] // group.size
+        blocks = v0.new_empty((group.size, n, n))
+        for r in group.shards():
+            m = ops_t[ops_t.shape[0] - 1]  # the identity
+            for o in obs[r * block : (r + 1) * block].tolist():
+                m = dispatch.matmul_tn(ops_t[o], m)  # this step after the block so far
+            blocks[r] = m
+        group.all_gather_into(blocks.view(-1, n), blocks[group.shards()[0]])
+        v = v0
+        for m in blocks:
+            v = dispatch.step_mv(m, v)
+        return v
+
+    return sp_decode
+
+
+def decode_time_parallel(hmm: HMM, seq: np.ndarray, group) -> np.ndarray:
+    """Time-parallel decode of a single sequence over the ``time`` group,
+    on the group's device.
+
+    The DENSE block-operator form: O(N³·(T−1)/S) composition against serial
+    decode's O(N²·T), the cross-check for the structured schedule of
+    :class:`~spec_viterbi_tpu_torch.ops.time_parallel.TimeParallelDecoder`,
+    which composes in the banded+low-rank closure and maps time blocks onto
+    one device's lanes."""
+    seq = validate_obs_seq(seq, hmm.emit_num)
+    if len(seq) == 0:
+        raise ValueError("cannot decode an empty sequence")
+    n = pad_to_lane(hmm.states_num)
+    e = hmm.emit_num
+    device = group.device
+    a_t = torch.as_tensor(hmm.transposed_transition_matrix(pad_to=n), device=device)
+    em = torch.as_tensor(hmm.emission_matrix(pad_to=n), device=device)
+    pi = torch.as_tensor(hmm.start_vector(pad_to=n), device=device)
+    # level-1 operators ops[o][i, j] = em[o, i] + a_t[i, j] + trailing
+    # identity for padding, built on the device and stored pre-transposed
+    # (TN layout) so composition does no per-step transpose
+    ops_t = torch.empty((e + 1, n, n), device=device)
+    torch.add(em[:, None, :], a_t.T[None], out=ops_t[:e])
+    ops_t[e] = torch.as_tensor(_identity_op(n), device=device)
+
+    rest = seq[1:]
+    block = -(-len(rest) // group.size)  # ceil
+    obs = np.concatenate([rest, np.full(group.size * block - len(rest), e, dtype=np.int32)])
+    v = make_time_parallel_decode(group)(ops_t, em[int(seq[0])] + pi, obs)
+    return v[: hmm.states_num].cpu().numpy()

@@ -1467,3 +1467,92 @@ def test_structured_specializer_on_card(cuda_device, level):
         np.testing.assert_array_equal(g, c)
         assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
     np.testing.assert_array_equal(comp.run_spec(ragged[2]), got_c[2])
+
+
+# ---- time parallelism: svt_minplus at the compose and fold shapes, the
+# remat launch and the walk --------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,s,r,n", [(37, 12, 3, 128), (5, 48, 3, 300), (64, 6, 6, 256), (3, 24, 24, 131)])
+def test_minplus_time_parallel_shapes_on_card(cuda_device, nb, s, r, n):
+    """The shapes ``TimeParallelDecoder`` gives ``svt_minplus``: a slot
+    store (strided over blocks, as the tree's earlier halves) against a
+    component's w (J = R), the dots against the components' u (K = R),
+    and the fold's two J = 1 launches on one block (a row view of the
+    store, then its transposed view): bit-equal to ``minplus_plain``."""
+    rng = np.random.default_rng(nb + s + r + n)
+    store = _minplus_mat(rng, (2 * nb, s, n), cuda_device)
+    u_b = store[0::2]
+    w_a_t = _minplus_mat(rng, (nb, r, n), cuda_device).transpose(1, 2).contiguous()
+    u_a = _minplus_mat(rng, (nb, r, n), cuda_device)
+    v = _minplus_mat(rng, (1, n, 1), cuda_device)
+    tropical.reset_launches()
+    dots_t = tropical.minplus(u_b, w_a_t)
+    assert torch.equal(dots_t, tropical.minplus_plain(u_b, w_a_t))
+    cross = tropical.minplus(dots_t, u_a)
+    assert torch.equal(cross, tropical.minplus_plain(dots_t, u_a))
+    blk = store[3:4]
+    dots = tropical.minplus(blk, v)
+    assert torch.equal(dots, tropical.minplus_plain(blk, v))
+    cand = tropical.minplus(blk.transpose(1, 2), dots)
+    assert torch.equal(cand, tropical.minplus_plain(blk.transpose(1, 2), dots))
+    assert tropical.launches == {"minplus": 4}
+
+
+def _time_parallel_models():
+    return [pytest.param(generate_profile_hmm(126, seed=1), id="profile"),
+            pytest.param(generate_tie_heavy_hmm(300, seed=0), id="tie_heavy"),
+            pytest.param(generate_banded_hmm(256, (-1, 2), 4, seed=1), id="banded")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hmm", _time_parallel_models())
+@pytest.mark.parametrize("k,compose", [(4, "scan"), (8, "tree"), (3, "scan")])
+def test_time_parallel_on_card_equals_cpu(cuda_device, hmm, k, compose):
+    """``TimeParallelDecoder`` on the card (``svt_minplus``, the path arm
+    of the model's fused decoder, ``svt_backtrace``) against the same
+    decoder on the CPU (their plain versions): scores bit-equal, paths
+    equal to each other and to the oracle; the launches of one call."""
+    from spec_viterbi_tpu_torch.ops.time_parallel import TimeParallelDecoder
+
+    sop = StructuredOperator.from_hmm(hmm)
+    em, pi = hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n)
+    card = TimeParallelDecoder(sop, em, pi, k=k, compose=compose, device=cuda_device)
+    cpu = TimeParallelDecoder(sop, em, pi, k=k, compose=compose, device="cpu")
+    fd = fused.FusedStructuredDecoder(sop, em, pi, device=cuda_device)
+    fd_cpu = fused.FusedStructuredDecoder(sop, em, pi, device="cpu")
+    rng = np.random.default_rng(k)
+    for t in (1, 2, k + 1, 3 * k + 2, 97):
+        seq = rng.integers(0, hmm.emit_num, size=t).astype(np.int32)
+        scores = card.decode(seq)
+        assert np.array_equal(scores, cpu.decode(seq)), t
+        fused.reset_launches()
+        tropical.reset_launches()
+        got_scores, path = card.decode_path(seq, engine=fd)
+        nb, tail = card.plan(t)
+        arm = "path_planned" if fd._path_arm is fd._fs else "path"
+        want = {"backtrace": int(t > 1), arm: int(nb > 0) + int(tail > 0)}
+        assert {name: c for name, c in fused.launches.items() if c} == {n: c for n, c in want.items() if c}, t
+        compose_steps = k - 1 if compose == "scan" else k.bit_length() - 1
+        assert tropical.launches["minplus"] == (2 * (compose_steps + nb) if nb and card.r1 else 0), t
+        cpu_scores, cpu_path = cpu.decode_path(seq, engine=fd_cpu)
+        assert np.array_equal(got_scores, scores) and np.array_equal(cpu_scores, scores), t
+        assert np.array_equal(path, cpu_path) and np.array_equal(path, viterbi_path_oracle(hmm, seq)[1]), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_decode_time_parallel_on_card_equals_cpu(cuda_device, shards):
+    """The dense SP on a local time group of the card (the TN product and
+    the fold's J = 1 step on ``svt_minplus``) against the CPU's: bit-equal."""
+    from spec_viterbi_tpu_torch.parallel import TIME_AXIS, decode_time_parallel, make_group
+
+    hmm = generate_profile_hmm(126, seed=2)
+    rng = np.random.default_rng(shards)
+    for t in (1, 2, 41, 130):
+        seq = rng.integers(0, hmm.emit_num, size=t).astype(np.int32)
+        tropical.reset_launches()
+        got = decode_time_parallel(hmm, seq, make_group(cuda_device, shards, axis=TIME_AXIS))
+        assert tropical.launches["minplus"] == shards * (-(-(t - 1) // shards) + 1), t
+        assert np.array_equal(got, decode_time_parallel(hmm, seq, make_group("cpu", shards, axis=TIME_AXIS))), t

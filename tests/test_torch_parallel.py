@@ -5,7 +5,8 @@ that meet through a ``file://`` rendezvous under the test's temporary
 directory, so parallel test workers never race for a port. Every rank
 decodes the same batches through a ``DistributedGroup``: the TP decoder
 (halo exchange, all-gathered scores, the min-reduce backtrace) and the DP
-entry points (lanes split over the ranks, results all-gathered). The
+entry points (lanes split over the ranks, results all-gathered), and the
+dense time-parallel decode (one time block a rank). The
 checks hold the ranks' results bit-equal to one process: the TP decoder
 on a local group, and the unsharded ``FusedStructuredDecoder``. Each
 spawn has its own time limit; ranks still alive at its end are killed
@@ -161,6 +162,22 @@ def test_dense_and_structured_ranks_equal_local_forms(world):
     for key, got in local.items():
         assert np.array_equal(ranks[0][key], np.stack(got)), key
         assert np.array_equal(ranks[0][key], want), key
+
+
+def test_time_parallel_ranks_equal_local_group(world):
+    """The dense SP over the ranks (one time block a rank, the blocks
+    all-gathered): bit-equal to a local time group of as many shards, and
+    within ±1.0 of the oracle."""
+    from spec_viterbi_tpu_torch import almost_equal_vec, viterbi_scores_oracle
+    from spec_viterbi_tpu_torch.parallel import TIME_AXIS, decode_time_parallel
+
+    size, ranks = world
+    hmm, _ = workers.dp_model()
+    seqs = workers.sequences(hmm.emit_num, workers.DP_LENGTHS, seed=7)
+    local = np.stack([decode_time_parallel(hmm, s, make_group("cpu", size, axis=TIME_AXIS)) for s in seqs])
+    assert np.array_equal(ranks[0]["sp"], local)
+    for got, s in zip(ranks[0]["sp"], seqs):
+        assert almost_equal_vec(got, viterbi_scores_oracle(hmm, s)), len(s)
 
 
 def test_dense_tp_ranks_hold_only_their_state_block(world):

@@ -15,6 +15,9 @@ virtual 8-device CPU mesh.
   and within ``almost_equal_vec`` of the JAX ``StreamDP`` (Pallas in
   interpret mode, with its bf16 emission split); its paths equal the JAX
   ``StreamDP``'s and ``viterbi_path_oracle``'s.
+- The dense SP (``decode_time_parallel``) is bit-equal to the JAX
+  function on a ``time`` mesh of as many devices (the same block split and
+  products) and within ``almost_equal_vec`` of the oracle.
 """
 
 import dataclasses
@@ -33,19 +36,27 @@ from spec_viterbi_tpu.ops.structured import StructuredOperator as RefOperator
 from spec_viterbi_tpu.parallel import make_mesh
 
 import spec_viterbi_tpu_torch.parallel as parallel
+from spec_viterbi_tpu_torch.hmm import pad_to_lane
 from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_path_oracle, viterbi_scores_oracle
-from spec_viterbi_tpu_torch.io.generators import generate_profile_hmm, generate_random_hmm
+from spec_viterbi_tpu_torch.io.generators import (
+    generate_banded_hmm,
+    generate_profile_hmm,
+    generate_random_hmm,
+    generate_tie_heavy_hmm,
+)
 from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
 from spec_viterbi_tpu_torch.ops import tropical
 from spec_viterbi_tpu_torch.ops.fused import FusedStructuredDecoder
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.parallel import (
     DATA_AXIS,
+    TIME_AXIS,
     StreamDP,
     decode_batch_dp,
     decode_batch_dp_fused,
     decode_batch_dp_tp,
     decode_path_batch_dp_fused,
+    decode_time_parallel,
     decode_tp,
     make_fused_dp,
     make_grid,
@@ -82,8 +93,8 @@ def _bit_equal(got, want):
 
 def test_exports_cover_the_jax_package():
     """Every name of the JAX ``parallel`` package has a counterpart, but
-    time parallelism (next slice) and the JAX sharding helpers."""
-    skip = {"decode_time_parallel", "make_time_parallel_decode", "batch_sharding", "replicated"}
+    the JAX sharding helpers."""
+    skip = {"batch_sharding", "replicated"}
     counterpart = {"make_mesh": "make_grid"}
     for name in ref_parallel.__all__:
         if name not in skip:
@@ -332,3 +343,71 @@ def test_stream_dp_ragged_lanes_and_budget(model, fused_pair):
         fd.MAX_PATH_BYTES = budget
     with pytest.raises(ValueError, match="empty lane set"):
         sdp.begin(np.zeros(0, np.int32))
+
+
+def test_ops_exports_cover_the_jax_package():
+    """The port's ``ops`` exports the JAX package's five tropical functions."""
+    import spec_viterbi_tpu.ops as ref_ops
+
+    import spec_viterbi_tpu_torch.ops as ops
+
+    for name in ref_ops.__all__:
+        assert name in ops.__all__ and getattr(ops, name) is getattr(tropical, name), name
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_time_parallel_matches_jax_and_oracle(model, shards):
+    hmm, ref, _, _, _ = model
+    group = make_group("cpu", shards, axis=TIME_AXIS)
+    mesh = make_mesh(time=shards)
+    for s in _seqs(hmm, (*LENGTHS, 1, 2, shards + 1), 12):
+        got = decode_time_parallel(hmm, s, group)
+        assert np.array_equal(got, np.asarray(ref_parallel.decode_time_parallel(ref, s, mesh))), len(s)
+        assert almost_equal_vec(got, viterbi_scores_oracle(hmm, s)), len(s)
+
+
+@pytest.mark.parametrize("name", ["banded_unreachable", "tie_heavy_dead_symbol"])
+def test_time_parallel_unreachable_states(name):
+    """+inf (unreachable states) survives block composition: a +1-chain
+    entered at 8 states (later states unreachable for t steps) and the
+    tie-heavy model, whose dead symbol drives every score to +inf."""
+    if name == "banded_unreachable":
+        hmm = generate_banded_hmm(128, (1,), 4, seed=7)
+        seqs = _seqs(hmm, (5, 37, 64), 13)
+    else:
+        hmm = generate_tie_heavy_hmm(60, seed=4)
+        seqs = _seqs(hmm, (5, 37, 64), 14)
+        seqs[1][20] = hmm.emit_num - 1  # the dead symbol
+    ref = ref_from_port(hmm)
+    for shards in (2, 4):
+        group = make_group("cpu", shards, axis=TIME_AXIS)
+        for s in seqs:
+            got = decode_time_parallel(hmm, s, group)
+            want = viterbi_scores_oracle(hmm, s)
+            assert np.isinf(got).any() and np.array_equal(np.isinf(got), np.isinf(want)), len(s)
+            assert almost_equal_vec(got, want), len(s)
+            ref_got = ref_parallel.decode_time_parallel(ref, s, make_mesh(time=shards))
+            assert np.array_equal(got, np.asarray(ref_got)), len(s)
+
+
+def test_time_parallel_checks_its_group_and_sequence(model, monkeypatch):
+    """SP takes a ``time`` group and a non-empty sequence; it launches one
+    product a symbol of each shard's padded block and one fold step a shard."""
+    hmm = model[0]
+    s = _seqs(hmm, (10,), 15)[0]
+    with pytest.raises(ValueError, match="'time' axis"):
+        decode_time_parallel(hmm, s, make_group("cpu", 2))
+    with pytest.raises(ValueError, match="empty"):
+        decode_time_parallel(hmm, s[:0], make_group("cpu", 2, axis=TIME_AXIS))
+    calls = []
+    plain = tropical.minplus
+
+    def counted(a, b, *args, **kwargs):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return plain(a, b, *args, **kwargs)
+
+    monkeypatch.setattr(tropical, "minplus", counted)
+    n = pad_to_lane(hmm.states_num)
+    decode_time_parallel(hmm, s, make_group("cpu", 4, axis=TIME_AXIS))
+    # 9 symbols after the first: blocks of 3, padded with 3 identities
+    assert calls == [((1, n, n), (1, n, n))] * 12 + [((1, n, n), (1, n, 1))] * 4

@@ -18,6 +18,7 @@ from spec_viterbi_tpu_torch.ops.fused import FusedStructuredDecoder
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.parallel import (
     DATA_AXIS,
+    TIME_AXIS,
     FusedTPDecoder,
     StreamDP,
     decode_batch_dp,
@@ -25,6 +26,7 @@ from spec_viterbi_tpu_torch.parallel import (
     decode_batch_dp_tp,
     decode_batch_structured_tp,
     decode_path_batch_dp_fused,
+    decode_time_parallel,
     decode_tp,
     init_distributed,
     make_grid,
@@ -136,6 +138,7 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
         out[f"{name}_block_shapes"] = np.array([list(p.shape) + [0] * (2 - p.dim()) for p in parts])
         out[f"{name}_block_bytes"] = np.array([p.untyped_storage().nbytes() for p in parts])
     out["structured_tp"] = np.stack(decode_batch_structured_tp(hmm, seqs, state))
+    out["sp"] = np.stack([decode_time_parallel(hmm, s, make_group("cpu", axis=TIME_AXIS)) for s in seqs])
     block, lens = stream_block(hmm.emit_num)
     out["stream_scores"], out["stream_path_scores"], out["stream_paths"] = run_stream(
         StreamDP(fd, group), block, lens)
