@@ -165,6 +165,26 @@ exits non-zero:
     host's µs a chunk and the device's idle share; the device time of one
     launch against its steps (0 to 1,024); and an ``occupancy_*_window``
     line for each kernel;
+23b. ``scheduler_cli`` (``scheduler_auto``, ``scheduler_routes``,
+    ``scheduler_cli``, ``native_parser`` lines): ``decode_auto`` on both
+    512-lane sets, scores and paths (the ``batch`` route: 1 FS launch, one
+    planned masked launch a bucket, the path calls of step 8), bit-equal to
+    the main path, with the split of a call (``plan_ms``, ``construct_ms``,
+    ``decode_ms``) against the warm direct call; ``execute_route`` for
+    every other route, each bit-equal to its direct entry point with its
+    launches counted: ``dp`` on ``make_grid(data=2)`` (both sets and the
+    uniform paths), ``tp_chunked`` on the banded model of step 18 under a
+    budget of half its arrays (219 window launches; paths on 64 lanes),
+    ``time_parallel`` on one sequence on request (k = 8, through
+    ``decode_auto``), ``tp_halo`` on this model at state 4 (512 lanes of a
+    200-step prefix, no kernel; capacity-bound paths refused), and
+    ``stream_engine`` on 64 lanes in the ``stream`` chunks; then the CLI in
+    process (``decode`` on the 512-lane ``.ess``, ``--path`` and
+    ``--stream-chunk 1000`` on 64 lanes, ``--time-parallel 8`` on one
+    sequence, ``info``), its stdout equal to the direct results' lines;
+    then the native parser, built and taken by ``read_hmm`` and
+    ``read_emit_seq``, equal to the Python tokenizer, with the host ms of
+    each on the ``.chmm`` and the 512 x 3,500 ``.ess``;
 24. ``probes``: the H100 probes (``spec_viterbi_tpu_torch.probes``) on the
     uniform set, with the probe kernels' launch counts read around that
     run: S1 (per-pass slopes, the speed-of-light line, bf16 operands and
@@ -199,7 +219,9 @@ exits non-zero:
     ``decode_batch``; then the composed form (``use_kernels=False``, plain
     PyTorch, no kernel) on 8 uniform and 4 ragged lanes: within ±1.0 of the
     dense scores and bit-equal to the same composed code on the CPU; the
-    host seconds of each form on those lanes;
+    host seconds of each form on those lanes; the ``hostmem`` line: the
+    level-2 compose's slab allocation and fill with ``np.empty`` and with
+    ``utils.hostmem.populate_empty``, in turn, 3 times each;
 27. ``bench``: the headline line (``spec_viterbi_tpu_torch.bench.headline``,
     the entry point's default inputs: this model and the first 50 uniform
     sequences) at full size: 16 pre-staged batches of 512 x 3,500, the
@@ -221,7 +243,8 @@ runs it) for the work it was timed on; the planned arms' launches come
 from the corpus model's main path, the generic arms' from
 ``generic_main``, ``minplus``'s from ``dense_main``, ``spec_main``,
 ``parallel_rest`` and ``time_parallel``, which adds its launches of the
-planned path arm and the backtrace to theirs. The
+planned path arm and the backtrace to theirs; ``scheduler_cli`` adds its
+launches of every kernel its routes run (``scheduler_cli_launches``). The
 line before the card's line is that JSON object with one entry per kernel;
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -231,6 +254,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import tempfile
 import time
@@ -280,6 +304,11 @@ DP_PATH_LANES = 128
 SPAWN_SECONDS = 600
 STRUCT_LEVEL = 2  # the structured specializer's level in spec_struct
 STRUCT_COMPOSED_UNIFORM, STRUCT_COMPOSED_RAGGED = 8, 4  # lanes of the composed form's prefix
+HOSTMEM_REPEATS = 3  # level-2 composes timed with each slab allocator (median)
+SCHED_REPEATS = 3  # runs of each part of the decode_auto split (median)
+SCHED_PATH_LANES = 64  # lanes of the tp_chunked route's path call
+SCHED_STREAM_LANES = 64  # lanes of the stream route and of the CLI's --path and --stream-chunk runs
+SCHED_CLI_CHUNK = 1000  # the CLI's --stream-chunk
 SWEEP_SMALL_MATCH = 500  # the sweeps' second model: 502 states
 SWEEP_TIMES = 2  # timed runs a sweep cell (the reference takes 10)
 RAGGED_TIMES = 2
@@ -1878,6 +1907,40 @@ def probes_phase(seed: int, card: str, hmm, fd, seqs_t, window_floors) -> tuple[
     return kernels, floors
 
 
+def hostmem_compose(card: str, hmm) -> dict:
+    """The level-2 compose of ``hmm``'s structured specializer
+    (``batched_compose_level``: its slabs' allocation and fill) with
+    ``np.empty`` and with ``utils.hostmem.populate_empty`` as the slab
+    allocator, in turn, ``HOSTMEM_REPEATS`` times each on the card's host;
+    both give the same slabs. Prints the ``hostmem`` line."""
+    import statistics
+
+    from spec_viterbi_tpu_torch.ops import structured_compose as sc
+    from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+    from spec_viterbi_tpu_torch.utils.hostmem import populate_empty
+
+    sop = StructuredOperator.from_hmm(hmm)
+    l1 = sc.batched_level1(sop, hmm.emission_matrix(pad_to=sop.n))
+    allocs = {"np_empty": np.empty, "populate_empty": populate_empty}
+    secs = {name: [] for name in allocs}
+    first = {}
+    for _ in range(HOSTMEM_REPEATS):
+        for name, alloc in allocs.items():
+            t0 = time.perf_counter()
+            out = sc.batched_compose_level(l1, l1, alloc=alloc)
+            secs[name].append(time.perf_counter() - t0)
+            first.setdefault(name, out)
+            del out
+    a, b = first["np_empty"], first["populate_empty"]
+    check(a[0] == b[0] and all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:])),
+          "the level-2 compose is the same with either allocator")
+    line = {"slab_bytes": sum(int(x.nbytes) for x in a[1:]), "repeats": HOSTMEM_REPEATS,
+            "cpu_count": os.cpu_count(), **{f"{k}_s": v for k, v in secs.items()},
+            **{f"{k}_median_s": statistics.median(v) for k, v in secs.items()}}
+    phase("hostmem", card=card, **line)
+    return line
+
+
 def struct_and_bench(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_r, plan) -> None:
     """The phases ``spec_struct``, ``bench``, ``bench_sweep`` and
     ``bench_ragged`` on the corpus model ``hmm``. ``scores_u`` ([512, n] on
@@ -1925,6 +1988,7 @@ def struct_and_bench(seed: int, card: str, hmm, uniform, ragged, scores_u, score
     comp.spec_with(hmm)
     secs["composed_spec_with"] = time.perf_counter() - t0
     check(comp._fused is None, "use_kernels=False pins the composed form")
+    hostmem = hostmem_compose(card, hmm)
     prefix = uniform[:STRUCT_COMPOSED_UNIFORM] + ragged[:STRUCT_COMPOSED_RAGGED]
     want = list(u_np[:STRUCT_COMPOSED_UNIFORM]) + scores_r[:STRUCT_COMPOSED_RAGGED]
     fused.reset_launches()
@@ -1949,7 +2013,7 @@ def struct_and_bench(seed: int, card: str, hmm, uniform, ragged, scores_u, score
           tuple_components=comp.num_components, tuple_offsets=list(comp.tuple_offsets),
           composed_lanes=[len(s) for s in prefix], composed_stack_bytes=sum(
               int(a.numel()) * 4 for a in comp.arrays),
-          largest_difference_to_dense=max(diffs), composed_card_equals_cpu=True)
+          largest_difference_to_dense=max(diffs), composed_card_equals_cpu=True, hostmem=hostmem)
     del spec, comp, cpu
     torch.cuda.empty_cache()
 
@@ -2008,6 +2072,365 @@ def struct_and_bench(seed: int, card: str, hmm, uniform, ragged, scores_u, score
         phase("bench_ragged", card=card, seconds=time.perf_counter() - t0, states=states, lanes=len(ragged),
               times_to_run=RAGGED_TIMES, headers=list(bench_ragged.HEADERS), row_ms=row,
               path_budget_bytes=fused.path_budget_bytes(dev))
+
+
+def _cli_scores(rows) -> str:
+    """What ``decode`` prints for the score vectors ``rows``: the JAX
+    CLI's lines, formatted here apart from the port's CLI."""
+    out = []
+    for i, v in enumerate(rows):
+        head = " ".join(f"{x:.4f}" for x in v[:8])
+        out.append(f"seq {i}: [{head}{' ...' if len(v) > 8 else ''}] min={np.min(v):.4f}\n")
+    return "".join(out)
+
+
+def _cli_paths(pairs) -> str:
+    """What ``decode --path`` prints for (scores, path) pairs."""
+    return "".join(f"seq {i}: best={np.min(sc):.4f} path={p.tolist()}\n" for i, (sc, p) in enumerate(pairs))
+
+
+def scheduler_cli(seed: int, card: str, hmm, dec, uniform, ragged, scores_u, scores_r, paths_u, paths_r,
+                  plan) -> dict:
+    """The phase ``scheduler_cli``: ``decode_auto``, every other route of
+    ``execute_route``, ``stream_engine``, the CLI in process and the
+    native parser, on the card. ``dec`` is the main path's decoder of the
+    corpus model ``hmm``; ``scores_u`` ([512, n] on the card), ``scores_r``,
+    ``paths_u`` and ``paths_r`` its results on the two sets, ``plan`` the
+    ragged set's bucket plan. Each route's output is held bit-equal to its
+    direct entry point's, and its kernels' launches are counted around
+    it. Returns the launches of the counted runs by kernel."""
+    import contextlib
+    import io
+    import statistics
+
+    import torch
+
+    from spec_viterbi_tpu_torch import (
+        Route,
+        ViterbiDecoder,
+        Workload,
+        decode_auto,
+        execute_route,
+        plan_route,
+        stream_engine,
+    )
+    from spec_viterbi_tpu_torch.cli import main as cli_main
+    from spec_viterbi_tpu_torch.io import chmm as chmm_io
+    from spec_viterbi_tpu_torch.io import ess as ess_io
+    from spec_viterbi_tpu_torch.io import (
+        generate_banded_hmm,
+        read_emit_seq,
+        read_hmm,
+        write_chmm,
+        write_ess,
+    )
+    from spec_viterbi_tpu_torch.native import loader
+    from spec_viterbi_tpu_torch.ops import _build, fused, tropical
+    from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
+    from spec_viterbi_tpu_torch.ops.time_parallel import TimeParallelDecoder
+    from spec_viterbi_tpu_torch.parallel import (
+        FusedTPDecoder,
+        decode_batch_dp_fused,
+        decode_batch_structured_tp,
+        decode_path_batch_dp_fused,
+        make_grid,
+        make_group,
+    )
+    from spec_viterbi_tpu_torch.scheduler import TIME_PARALLEL_K_DEFAULT, model_resident_bytes
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    fd = dec._fused
+    n_real = hmm.states_num
+    u_np = scores_u.cpu().numpy()[:, :n_real]
+    launched: dict[str, int] = {}
+
+    def counted(label, fn, want):
+        """``fn()`` with the kernels' launches counted around it: exactly
+        ``want``, no other kernel."""
+        fused.reset_launches()
+        tropical.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {**fused.launches, **tropical.launches}
+        check(counts == {**ZERO_LAUNCHES, "minplus": 0, **want}, f"{label}: launches {counts}, want {want}")
+        for name, c in counts.items():
+            launched[name] = launched.get(name, 0) + c
+        return out
+
+    def same_scores(got, want) -> bool:
+        return len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+    def same_paths(got, want) -> bool:
+        return len(got) == len(want) and all(
+            np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]) for g, w in zip(got, want))
+
+    def med_ms(fn) -> float:
+        return 1e3 * statistics.median(_settled(fn) for _ in range(SCHED_REPEATS))
+
+    # ---- decode_auto on both sets: the batch route, bit-equal to the main
+    # path, then the split of a call against the warm direct call ---------
+    budget = fd._path_lane_budget
+    u_calls = -(-LANES // max(fused.BB, budget(T_LEN)))
+    r_calls = sum(-(-len(idx) // max(fused.BB, budget(t))) for idx, t in plan)
+    auto = {}
+    for name, seqs, scores, paths, want_s, want_p in (
+        ("uniform", uniform, list(u_np), paths_u, {"scores_fs": 1},
+         {"path_planned": u_calls, "backtrace": u_calls}),
+        ("ragged", ragged, scores_r, paths_r, {"scores_masked_planned": len(plan)},
+         {"path_planned": r_calls, "backtrace": r_calls}),
+    ):
+        route = plan_route(hmm, Workload.from_seqs(seqs), device=dev)
+        check(route.kind == "batch", f"decode_auto plans {route.kind} for the {name} set")
+        got = counted(f"decode_auto {name}", lambda: decode_auto(hmm, seqs, device=dev), want_s)
+        check(same_scores(got, scores), f"decode_auto {name} scores == the main path's")
+        got = counted(f"decode_auto {name} paths", lambda: decode_auto(hmm, seqs, paths=True, device=dev), want_p)
+        check(same_paths(got, paths), f"decode_auto {name} paths == decode_path_batch's")
+        del got
+        fresh = {}
+
+        def construct():
+            fresh["dec"] = ViterbiDecoder(hmm, device=dev)
+
+        auto[name] = {
+            "route": route.kind, "reason": route.reason, "launches": want_s, "path_launches": want_p,
+            "plan_ms": med_ms(lambda: plan_route(hmm, Workload.from_seqs(seqs), device=dev)),
+            "construct_ms": med_ms(construct),
+            "decode_ms": med_ms(lambda: fresh["dec"].decode_batch(seqs)),
+            "decode_auto_ms": med_ms(lambda: decode_auto(hmm, seqs, device=dev)),
+            "warm_direct_ms": med_ms(lambda: dec.decode_batch(seqs)),
+            "decode_auto_paths_ms": med_ms(lambda: decode_auto(hmm, seqs, paths=True, device=dev)),
+            "warm_direct_paths_ms": med_ms(lambda: dec.decode_path_batch(seqs)),
+        }
+        del fresh
+    phase("scheduler_auto", card=card, states=n_real, lanes=LANES, symbols=T_LEN, repeats=SCHED_REPEATS,
+          **auto)
+
+    # ---- execute_route: the other routes, each against its direct entry
+    # point ---------------------------------------------------------------
+    routes = {}
+    sop = fd.sop
+    em, pi = hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n)
+
+    # dp, data 2: the uniform set's shards run FS, the ragged set's the
+    # planned masked arm, the paths the planned path arm and the walk
+    grid = make_grid(dev, data=2)
+    route = plan_route(hmm, Workload.from_seqs(uniform), grid, device=dev)
+    check(route.kind == "dp" and route.params == {"shards": 2}, f"data 2 plans {route}")
+    with_paths = Route(route.kind, route.reason, {**route.params, "paths": True})
+    want = {"uniform": {"scores_fs": 2}, "ragged": {"scores_masked_planned": 2},
+            "uniform_paths": {"path_planned": 2, "backtrace": 2}}
+    t0 = time.perf_counter()
+    got_u = counted("dp uniform", lambda: execute_route(hmm, uniform, route, grid, device=dev), want["uniform"])
+    got_r = counted("dp ragged", lambda: execute_route(hmm, ragged, route, grid, device=dev), want["ragged"])
+    got_p = counted("dp uniform paths", lambda: execute_route(hmm, uniform, with_paths, grid, device=dev),
+                    want["uniform_paths"])
+    secs = time.perf_counter() - t0
+    check(same_scores(got_u, decode_batch_dp_fused(fd, uniform, grid.data)) and same_scores(got_u, list(u_np)),
+          "dp route == decode_batch_dp_fused == run_batch (uniform)")
+    check(same_scores(got_r, decode_batch_dp_fused(fd, ragged, grid.data)) and same_scores(got_r, scores_r),
+          "dp route == decode_batch_dp_fused == decode_batch (ragged)")
+    check(same_paths(got_p, decode_path_batch_dp_fused(fd, uniform, grid.data)) and same_paths(got_p, paths_u),
+          "dp route paths == decode_path_batch_dp_fused == decode_path_batch")
+    del got_u, got_r, got_p
+    routes["dp"] = {"shards": 2, "seconds": secs, "launches": want}
+
+    # tp_chunked: the banded model of tp_main, capacity-bound by a budget
+    # of half its arrays
+    banded = generate_banded_hmm(TP_STATES, TP_OFFSETS, TP_SYMBOLS, seed=seed)
+    b_sop = StructuredOperator.from_hmm(banded)
+    rng = np.random.default_rng(seed + 5)
+    b_seqs = [rng.integers(0, banded.emit_num, size=T_LEN).astype(np.int32) for _ in range(LANES)]
+    grid = make_grid(dev, state=TP_SHARDS)
+    small = model_resident_bytes(b_sop, banded.emit_num) // 2
+    route = plan_route(banded, Workload.from_seqs(b_seqs, hbm_bytes=small), grid, device=dev)
+    check(route.kind == "tp_chunked" and route.params == {
+        "chunk": TP_CHUNK, "shards": TP_SHARDS, "capacity_bound": True}, f"the banded model plans {route}")
+    with_paths = Route(route.kind, route.reason, {**route.params, "paths": True})
+    chunks = -(-(T_LEN - 1) // TP_CHUNK)
+    want = {"scores": {"scores_window": chunks}, "paths": {"path_window": chunks, "backtrace": 1}}
+    t0 = time.perf_counter()
+    got = counted("tp_chunked", lambda: execute_route(banded, b_seqs, route, grid, device=dev), want["scores"])
+    got_p = counted("tp_chunked paths", lambda: execute_route(
+        banded, b_seqs[:SCHED_PATH_LANES], with_paths, grid, device=dev), want["paths"])
+    secs = time.perf_counter() - t0
+    direct = FusedTPDecoder(b_sop, banded.emission_matrix(pad_to=b_sop.n), banded.start_vector(pad_to=b_sop.n),
+                            make_group(dev, TP_SHARDS), chunk=TP_CHUNK)
+    check(same_scores(got, direct.decode_batch(b_seqs)), "tp_chunked route == FusedTPDecoder.decode_batch")
+    check(same_paths(got_p, direct.decode_path_batch(b_seqs[:SCHED_PATH_LANES])),
+          "tp_chunked route paths == FusedTPDecoder.decode_path_batch")
+    del got, got_p, direct
+    routes["tp_chunked"] = {"states": banded.states_num, "shards": TP_SHARDS, "chunk": TP_CHUNK, "lanes": LANES,
+                            "path_lanes": SCHED_PATH_LANES, "hbm_bytes": small, "seconds": secs,
+                            "launches": want}
+
+    # time_parallel: one 3,500-symbol sequence on request (k = 8, scan),
+    # through decode_auto
+    seq = uniform[0]
+    k = TIME_PARALLEL_K_DEFAULT
+    tp = TimeParallelDecoder(sop, em, pi, k=k, device=dev)
+    nb, tail = tp.plan(len(seq))
+    want = {"scores": {"minplus": 2 * (k - 1) + 2 * nb},
+            "paths": {"minplus": 2 * (k - 1) + 2 * nb, "path_planned": 1 + (tail > 0), "backtrace": 1}}
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        got = counted("time_parallel", lambda: decode_auto(
+            hmm, [seq], prefer_time_parallel=True, verbose=True, device=dev), want["scores"])
+        got_p = counted("time_parallel paths", lambda: decode_auto(
+            hmm, [seq], paths=True, prefer_time_parallel=True, verbose=True, device=dev), want["paths"])
+    secs = time.perf_counter() - t0
+    check(err.getvalue().count(f"[scheduler] time_parallel: single {len(seq)}-symbol sequence") == 2,
+          f"decode_auto planned time_parallel: {err.getvalue()!r}")
+    check(same_scores(got, [tp.decode(seq)]), "time_parallel route == TimeParallelDecoder.decode")
+    check(same_paths(got_p, [tp.decode_path(seq, engine=fd)]),
+          "time_parallel route paths == TimeParallelDecoder.decode_path(engine=)")
+    tp_scores = got[0]
+    check(np.array_equal(got_p[0][1], paths_u[0][1]), "time_parallel path == the serial fused path")
+    routes["time_parallel"] = {"k": k, "blocks": nb, "tail": tail, "seconds": secs, "launches": want}
+    del tp
+
+    # tp_halo: the corpus model (coupled: its dense row and columns fail
+    # fused_tp_supported), state 4, a 200-step prefix of the 512 lanes; no
+    # kernel, by definition; capacity-bound paths refused
+    prefix = [s[:PAR_PREFIX] for s in uniform]
+    grid = make_grid(dev, state=TP_SHARDS)
+    small = model_resident_bytes(sop, hmm.emit_num) // 2
+    route = plan_route(hmm, Workload.from_seqs(prefix, hbm_bytes=small), grid, device=dev)
+    check(route.kind == "tp_halo" and route.params == {"shards": TP_SHARDS, "capacity_bound": True},
+          f"the corpus model plans {route}")
+    t0 = time.perf_counter()
+    got = counted("tp_halo", lambda: execute_route(hmm, prefix, route, grid, device=dev), {})
+    secs = time.perf_counter() - t0
+    check(same_scores(got, decode_batch_structured_tp(hmm, prefix, make_group(dev, TP_SHARDS))),
+          "tp_halo route == decode_batch_structured_tp")
+    check(same_scores(got, dec.decode_batch(prefix)), "tp_halo route == the fused decoder's scores")
+    refused = False
+    try:
+        execute_route(hmm, prefix[:2], Route(route.kind, route.reason, {**route.params, "paths": True}), grid,
+                      device=dev)
+    except ValueError:
+        refused = True
+    check(refused, "capacity-bound halo TP refuses paths")
+    routes["tp_halo"] = {"shards": TP_SHARDS, "lanes": LANES, "symbols": PAR_PREFIX, "hbm_bytes": small,
+                         "seconds": secs, "launches": {}, "paths_refused": True}
+
+    # stream_engine: the fused engine, chunks of 999, 1,500 and 1,000
+    route = plan_route(hmm, Workload(n_seqs=SCHED_STREAM_LANES, max_len=T_LEN, streaming=True), device=dev)
+    check(route.kind == "stream_fused", f"a stream plans {route.kind}")
+    eng = stream_engine(hmm, route, device=dev)
+    check(isinstance(eng, fused.FusedStructuredDecoder) and eng is not fd, "stream_engine: a new fused engine")
+    block = np.stack(uniform[:SCHED_STREAM_LANES], axis=1)
+    feeds = len(STREAM_CHUNKS)
+
+    def scores_stream():
+        st, pos = eng.stream_begin(block[0]), 1
+        for w in STREAM_CHUNKS:
+            st, pos = eng.stream_feed(st, block[pos : pos + w]), pos + w
+        return eng.stream_scores(st)
+
+    def path_stream():
+        st, pos = eng.stream_begin_path(block[0]), 1
+        for w in STREAM_CHUNKS:
+            st, pos = eng.stream_feed_path(st, block[pos : pos + w]), pos + w
+        return eng.stream_path_finalize(st)
+
+    want = {"scores": {"scores_masked_planned": feeds},
+            "paths": {"scores_masked_planned": feeds, "path_planned": feeds, "backtrace": feeds}}
+    t0 = time.perf_counter()
+    got = counted("stream_engine scores", scores_stream, want["scores"])
+    got_sc, got_p = counted("stream_engine paths", path_stream, want["paths"])
+    secs = time.perf_counter() - t0
+    check(np.array_equal(got, u_np[:SCHED_STREAM_LANES]), "stream_engine scores == the main path's")
+    check(same_paths(list(zip(got_sc, got_p)), paths_u[:SCHED_STREAM_LANES]),
+          "stream_engine paths == decode_path_batch's")
+    refused = False
+    try:
+        execute_route(hmm, uniform[:2], route, device=dev)
+    except ValueError:
+        refused = True
+    check(refused, "execute_route refuses a stream route")
+    routes["stream_fused"] = {"lanes": SCHED_STREAM_LANES, "chunks": list(STREAM_CHUNKS), "seconds": secs,
+                              "launches": want}
+    phase("scheduler_routes", card=card, **routes)
+
+    # ---- the CLI in process, on files written here; stdout captured -----
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        chmm, u512, u64, one = (f"{tmp}/{f}" for f in ("model.chmm", "uniform.ess", "u64.ess", "one.ess"))
+        write_chmm(hmm, chmm)
+        write_ess(uniform, u512)
+        write_ess(uniform[:SCHED_STREAM_LANES], u64)
+        write_ess([seq], one)
+        cli = {}
+
+        def run_cli(label, argv, want_launches, want_out):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = counted(f"cli {label}", lambda: cli_main(argv), want_launches)
+            cli[label] = {"seconds": time.perf_counter() - t0, "launches": want_launches,
+                          "stdout_bytes": len(out.getvalue())}
+            check(rc == 0, f"cli {label}: rc {rc}")
+            check(out.getvalue() == want_out, f"cli {label}: stdout == the direct results' lines")
+            return err.getvalue()
+
+        err = run_cli("decode", ["decode", chmm, u512, "--device", "cuda"], {"scores_fs": 1}, _cli_scores(u_np))
+        check(err.startswith(f"[scheduler] batch: single-device batched decode ({LANES} seqs)"),
+              f"cli decode: the scheduler line {err!r}")
+        run_cli("decode_path", ["decode", chmm, u64, "--path", "--device", "cuda"],
+                {"path_planned": 1, "backtrace": 1}, _cli_paths(paths_u[:SCHED_STREAM_LANES]))
+        feeds = len(range(1, T_LEN, SCHED_CLI_CHUNK))
+        run_cli("decode_stream_chunk", ["decode", chmm, u64, "--stream-chunk", str(SCHED_CLI_CHUNK),
+                                        "--device", "cuda"],
+                {"scores_masked_planned": feeds}, _cli_scores(u_np[:SCHED_STREAM_LANES]))
+        run_cli("decode_time_parallel", ["decode", chmm, one, "--time-parallel", str(k), "--device", "cuda"],
+                {"minplus": 2 * (k - 1) + 2 * nb}, _cli_scores([tp_scores]))
+        info = io.StringIO()
+        with contextlib.redirect_stdout(info):
+            check(cli_main(["info", chmm]) == 0, "cli info")
+        check(info.getvalue().startswith(f"states:        {n_real} (padded {sop.n})\n"), "cli info's first line")
+        check(f"fingerprint:   {hmm.fingerprint()}\n" in info.getvalue(), "cli info's fingerprint")
+        phase("scheduler_cli", card=card, runs=cli, stream_chunk=SCHED_CLI_CHUNK, info_lines=len(
+            info.getvalue().splitlines()))
+
+        # ---- the native parser: built, taken by read_hmm, equal to the
+        # Python tokenizer; the host ms of each -------------------------------
+        t0 = time.perf_counter()
+        lib = loader.build()
+        build_s = time.perf_counter() - t0
+        check(lib is not None and loader.native_available(), "the native parser builds")
+        before = dict(loader.parses)
+        t0 = time.perf_counter()
+        h_native = read_hmm(chmm)
+        chmm_native_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        s_native = read_emit_seq(u512)
+        ess_native_ms = 1e3 * (time.perf_counter() - t0)
+        check(loader.parses == {"hmm": before["hmm"] + 1, "ess": before["ess"] + 1},
+              "read_hmm and read_emit_seq took the native parser")
+        t0 = time.perf_counter()
+        with open(chmm) as f:
+            h_py = chmm_io._parse_tokens(f.read().split(), chmm)
+        chmm_python_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with open(u512) as f:
+            s_py = ess_io._parse_tokens(f.read().split(), u512)
+        ess_python_ms = 1e3 * (time.perf_counter() - t0)
+        for field in ("trans_rows", "trans_cols", "trans_probs", "emissions", "start_probabilities_cols",
+                      "start_probabilities"):
+            a, b = getattr(h_native, field), getattr(h_py, field)
+            check(a.dtype == b.dtype and np.array_equal(a, b), f"native .chmm == the Python tokenizer: {field}")
+        check(h_native.fingerprint() == hmm.fingerprint(), "native .chmm == the model")
+        check(same_scores(s_native, s_py) and same_scores(s_native, uniform), "native .ess == the Python tokenizer")
+        phase("native_parser", card=card, library=lib.name, build_or_lookup_s=build_s, states=n_real,
+              chmm_bytes=os.path.getsize(chmm), ess_bytes=os.path.getsize(u512), sequences=len(s_native),
+              chmm_native_ms=chmm_native_ms, chmm_python_ms=chmm_python_ms, ess_native_ms=ess_native_ms,
+              ess_python_ms=ess_python_ms, parses=dict(loader.parses))
+    torch.cuda.empty_cache()
+    phase("scheduler_cli_total", card=card, seconds=time.perf_counter() - t_phase,
+          launches={name: c for name, c in launched.items() if c})
+    return launched
 
 
 def main() -> int:
@@ -2345,6 +2768,7 @@ def main() -> int:
                  "dense": dense, "stream": stream_ref}
     window_kernels, window_floors = tp_and_dp(args.seed, card, lengths, fd, ragged, scores_r, bt_calls,
                                               rest_refs)
+    sched = scheduler_cli(args.seed, card, hmm, dec, uniform, ragged, scores_u, scores_r, paths_u, paths_r, plan)
     main_calls = [c for c in bt_calls if not c["call"].startswith(("TP", "DP"))]
     lane_calls = sum(c["lanes"] for c in main_calls)
     phase("backtrace_misses", card=card, band=_build.BT_BAND, tile=_build.BT_TILE, ahead=_build.BT_AHEAD,
@@ -2501,6 +2925,10 @@ def main() -> int:
         if e["name"] in ("path_planned", "backtrace"):
             e["launches"] += tpar[e["name"]]
             e["time_parallel_launches"] = tpar[e["name"]]
+    for e in kernels:  # the scheduler_cli phase's launches
+        if sched.get(e["name"]):
+            e["launches"] += sched[e["name"]]
+            e["scheduler_cli_launches"] = sched[e["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

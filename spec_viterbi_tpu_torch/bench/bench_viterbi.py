@@ -45,9 +45,9 @@ ARTIFACT_LEVELS = (1, 2)
 ARTIFACT_STRUCT_LEVELS = (1, 2, 3)
 
 
-def nonspec_headers() -> list[str]:
+def nonspec_headers(modes: tuple[str, ...] = DEFAULT_MODES) -> list[str]:
     """Column contract of a non-spec ``.dat`` (``bench_Viterbi.h:31``)."""
-    return ["States", *DEFAULT_MODES]
+    return ["States", *modes]
 
 
 def spec_headers(
@@ -63,9 +63,12 @@ def spec_headers(
     return headers
 
 
-def _iter_models(chmm_dir: str):
+def _iter_models(chmm_dir: str, max_states: int | None = None):
     for path in sorted(glob.glob(os.path.join(chmm_dir, "*.chmm"))):
-        yield path, read_hmm(path)
+        hmm = read_hmm(path)
+        if max_states is not None and hmm.states_num > max_states:
+            continue
+        yield path, hmm
 
 
 def _skip_reason(path: str, hmm, max_sym: int, bench: dict) -> str | None:
@@ -86,23 +89,29 @@ def benchmark_viterbi_impls_to_dat_file(
     chmm_dir: str,
     ess_path: str,
     out_path: str,
+    modes: tuple[str, ...] = DEFAULT_MODES,
     times_to_run: int = harness.TIMES_TO_RUN,
+    max_states: int | None = None,
+    verbose: bool = True,
     device: torch.device | str = "cuda",
 ) -> dict[int, list[float]]:
-    """Non-spec benchmark: one column per execution mode
+    """Non-spec benchmark: one column per execution mode in ``modes``
     (``bench_Viterbi.h:17-69``); ``ViterbiDecoder`` ``prepare_batch`` once,
-    ``run_batch`` timed."""
+    ``run_batch`` timed. Models of more than ``max_states`` states are
+    left out; ``verbose`` prints each model and its row."""
     seqs = read_emit_seq(ess_path)
     max_sym = max((int(s.max()) for s in seqs if len(s)), default=-1)
+    headers = nonspec_headers(modes)
     bench: dict[int, list[float]] = {}
-    for path, hmm in _iter_models(chmm_dir):
+    for path, hmm in _iter_models(chmm_dir, max_states):
         reason = _skip_reason(path, hmm, max_sym, bench)
         if reason:
             print(f"[bench] {reason}")
             continue
-        print(f"[bench] {os.path.basename(path)} ({hmm.states_num} states)")
+        if verbose:
+            print(f"[bench] {os.path.basename(path)} ({hmm.states_num} states)")
         row: list[float] = []
-        for mode in DEFAULT_MODES:
+        for mode in modes:
             dec = ViterbiDecoder(hmm, mode=mode, device=device)
             handle = dec.prepare_batch(seqs)
 
@@ -112,10 +121,11 @@ def benchmark_viterbi_impls_to_dat_file(
             run()  # warm-up outside the timed runs
             row.append(harness.get_median(harness.get_sorted_run_times(run, times_to_run)))
         bench[hmm.states_num] = row
-        print(f"[bench]   -> {row}")
+        if verbose:
+            print(f"[bench]   -> {row}")
         # per-model flush: an interrupted sweep keeps its completed rows
-        harness.print_benchmarks_to_file_as_dat(out_path, nonspec_headers(), bench)
-    harness.print_benchmarks_to_file_as_dat(out_path, nonspec_headers(), bench)
+        harness.print_benchmarks_to_file_as_dat(out_path, headers, bench)
+    harness.print_benchmarks_to_file_as_dat(out_path, headers, bench)
     return bench
 
 
@@ -179,8 +189,10 @@ def benchmark_viterbi_spec_impls_to_dat_file(
     out_path: str,
     levels: tuple[int, ...] = (1, 2),
     times_to_run: int = harness.TIMES_TO_RUN,
+    max_states: int | None = None,
     max_spec_bytes: int = 8 << 30,
     prep_times_to_run: int | None = None,
+    verbose: bool = True,
     struct_levels: tuple[int, ...] | None = None,
     device: torch.device | str = "cuda",
 ) -> dict[int, list[float]]:
@@ -195,6 +207,8 @@ def benchmark_viterbi_spec_impls_to_dat_file(
     ``struct_levels`` extends the structured specializer past the dense
     levels (defaults to ``levels``): its store grows O(E^L·N) instead of
     O(E^L·N²), so it reaches level 3 where the dense one cannot.
+    ``max_states`` and ``verbose`` as in
+    :func:`benchmark_viterbi_impls_to_dat_file`.
     """
     seqs = read_emit_seq(ess_path)
     impls = (
@@ -205,12 +219,13 @@ def benchmark_viterbi_spec_impls_to_dat_file(
 
     max_sym = max((int(s.max()) for s in seqs if len(s)), default=-1)
     bench: dict[int, list[float]] = {}
-    for path, hmm in _iter_models(chmm_dir):
+    for path, hmm in _iter_models(chmm_dir, max_states):
         reason = _skip_reason(path, hmm, max_sym, bench)
         if reason:
             print(f"[bench-spec] {reason}")
             continue
-        print(f"[bench-spec] {os.path.basename(path)} ({hmm.states_num} states)")
+        if verbose:
+            print(f"[bench-spec] {os.path.basename(path)} ({hmm.states_num} states)")
         row: list[float] = []
         for name, cls, impl_levels in impls:
             for level in impl_levels:
@@ -237,7 +252,8 @@ def benchmark_viterbi_spec_impls_to_dat_file(
                 row += [prep_t, run_t]
                 del spec, run
         bench[hmm.states_num] = row
-        print(f"[bench-spec]   -> {row}")
+        if verbose:
+            print(f"[bench-spec]   -> {row}")
         # per-model flush: an interrupted sweep keeps its completed rows
         harness.print_benchmarks_to_file_as_dat(out_path, headers, bench)
     harness.print_benchmarks_to_file_as_dat(out_path, headers, bench)

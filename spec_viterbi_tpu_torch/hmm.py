@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 
 import numpy as np
 
@@ -26,13 +27,27 @@ ALMOST_EQUAL_DELTA = 1.0
 LANE = 128
 
 
+def to_modified_prob(p: float) -> float:
+    """``−log2(p)`` for p > 0, else the semiring zero ``+inf``."""
+    if p > 0.0:
+        return -math.log2(p)
+    return ZERO_PROB
+
+
 def to_modified_prob_np(p: np.ndarray) -> np.ndarray:
-    """Vectorized ``−log2(p)`` for p > 0, else ``+inf``."""
+    """Vectorized :func:`to_modified_prob`."""
     p = np.asarray(p, dtype=np.float64)
     out = np.full(p.shape, ZERO_PROB, dtype=MOD_PROB_DTYPE)
     pos = p > 0.0
     out[pos] = (-np.log2(p[pos])).astype(MOD_PROB_DTYPE)
     return out
+
+
+def almost_equal(x: float, y: float, delta: float = ALMOST_EQUAL_DELTA) -> bool:
+    """Both +inf, or ``|x−y| ≤ delta``."""
+    if math.isinf(x) and math.isinf(y) and x > 0 and y > 0:
+        return True
+    return abs(x - y) <= delta
 
 
 def almost_equal_vec(
@@ -152,6 +167,11 @@ class HMM:
         mat = np.full((self.emit_num, n), ZERO_PROB, dtype=MOD_PROB_DTYPE)
         mat[:, : self.states_num] = self.emissions
         return mat
+
+    @property
+    def padded_states(self) -> int:
+        """The state count rounded up to a multiple of ``LANE``."""
+        return pad_to_lane(self.states_num)
 
     def fingerprint(self) -> str:
         """Stable content hash, the operator cache's key (the JAX package's

@@ -1,7 +1,9 @@
-"""I/O: .chmm / .ess parsers and writers, and seeded dataset generators."""
+"""I/O: .chmm / .ess parsers (with the native C++ parser) and writers,
+FASTA and HMMER3 conversion, and seeded dataset generators."""
 
 from spec_viterbi_tpu_torch.io.chmm import read_hmm, write_chmm
 from spec_viterbi_tpu_torch.io.ess import read_emit_seq, write_ess
+from spec_viterbi_tpu_torch.io.fasta import fasta_to_sequences
 from spec_viterbi_tpu_torch.io.generators import (
     generate_banded_hmm,
     generate_profile_hmm,
@@ -10,6 +12,7 @@ from spec_viterbi_tpu_torch.io.generators import (
     generate_tie_heavy_banded_hmm,
     generate_tie_heavy_hmm,
 )
+from spec_viterbi_tpu_torch.io.hmmer import hmmer_to_chmm, hmmer_to_hmm
 
 __all__ = [
     "generate_banded_hmm",
@@ -19,6 +22,9 @@ __all__ = [
     "write_chmm",
     "read_emit_seq",
     "write_ess",
+    "fasta_to_sequences",
+    "hmmer_to_chmm",
+    "hmmer_to_hmm",
     "generate_profile_hmm",
     "generate_random_hmm",
     "generate_random_sequences",

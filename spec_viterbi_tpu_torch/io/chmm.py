@@ -11,9 +11,12 @@ Format::
     T x "src dst prob"
 
 Every probability is converted to −log2 at load and emissions are stored
-transposed to the file layout as ``emissions[symbol][state]``. Only the
-pure-Python tokenizer is ported; the JAX package's native mmap parser is
-not.
+transposed to the file layout as ``emissions[symbol][state]``.
+
+:func:`read_hmm` parses with the native C++ parser
+(:mod:`spec_viterbi_tpu_torch.native`) when it is there, as the JAX
+package's reader does; this module's tokenizer is the fallback and the
+semantics reference, and raises the precise error on a bad file.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 import numpy as np
 
 from spec_viterbi_tpu_torch.hmm import HMM, MOD_PROB_DTYPE, to_modified_prob_np
+from spec_viterbi_tpu_torch.native import loader as _native
 
 
 def _parse_tokens(tokens: np.ndarray | list, path: str) -> HMM:
@@ -75,6 +79,9 @@ def _parse_tokens(tokens: np.ndarray | list, path: str) -> HMM:
 def read_hmm(path: str | os.PathLike) -> HMM:
     """Parse a ``.chmm`` file into an :class:`HMM`; a bad file raises."""
     path = os.fspath(path)
+    parsed = _native.read_hmm_native(path)
+    if parsed is not None:
+        return parsed
     with open(path, "r") as f:
         tokens = f.read().split()
     return _parse_tokens(tokens, path)

@@ -10,7 +10,8 @@ Format::
     N-1 len(seq[N-1])
     seq[N-1] symbols
 
-A sequence numbered out of order raises.
+A sequence numbered out of order raises. :func:`read_emit_seq` parses
+with the native C++ parser when it is there, as ``io/chmm.py`` does.
 """
 
 from __future__ import annotations
@@ -19,10 +20,15 @@ import os
 
 import numpy as np
 
+from spec_viterbi_tpu_torch.native import loader as _native
+
 
 def read_emit_seq(path: str | os.PathLike) -> list[np.ndarray]:
     """Parse an ``.ess`` file into a list of int32 symbol arrays."""
     path = os.fspath(path)
+    parsed = _native.read_ess_native(path)
+    if parsed is not None:
+        return parsed
     with open(path, "r") as f:
         tokens = f.read().split()
     return _parse_tokens(tokens, path)

@@ -293,7 +293,7 @@ def _slot_plan(l1, prev):
     return out_offsets, diag_pairs, g1_slots, g2_slots
 
 
-def batched_compose_level(l1, prev, threads: int | None = None):
+def batched_compose_level(l1, prev, threads: int | None = None, alloc=np.empty):
     """One ``add_level`` step in array form: all E symbols × all P tuples.
 
     ``l1 = (offsets_a, adv [E,Da,N], auu [E,Ra,N], aww [E,Ra,N])`` is the
@@ -305,12 +305,13 @@ def batched_compose_level(l1, prev, threads: int | None = None):
 
     Dead slots are identified BEFORE allocation from finiteness footprints
     (`_slot_plan`), so the ``[E, P, slots, N]`` output slabs are allocated
-    at their final pruned size — no post-hoc copy — with ``np.empty``
-    (the JAX package pre-faults them with its ``populate_empty``, a
-    first-touch measure for its build machines; the contents are the
-    same). The fill is a thread pool over P-chunks with ``out=``-parameter
-    ufuncs (NumPy releases the GIL on large arrays), writing each slab
-    exactly once.
+    at their final pruned size — no post-hoc copy — by ``alloc``:
+    ``np.empty``, or ``utils.hostmem.populate_empty``, which pre-faults
+    them as the JAX package does (the contents are the same; on the
+    card's host ``chip_smoke.py``'s ``spec_struct`` phase times both,
+    PERF.md). The fill is a thread pool over P-chunks with
+    ``out=``-parameter ufuncs (NumPy releases the GIL on large arrays),
+    writing each slab exactly once.
     """
     import concurrent.futures
     import os as _os
@@ -323,9 +324,9 @@ def batched_compose_level(l1, prev, threads: int | None = None):
     out_offsets, diag_pairs, g1_slots, g2_slots = _slot_plan(l1, prev)
     dc = len(out_offsets)
     rc = len(g1_slots) + len(g2_slots)
-    dv_out = np.empty((e, p, dc, n), np.float32)
-    uu_out = np.empty((e, p, rc, n), np.float32)
-    ww_out = np.empty((e, p, rc, n), np.float32)
+    dv_out = alloc((e, p, dc, n), np.float32)
+    uu_out = alloc((e, p, rc, n), np.float32)
+    ww_out = alloc((e, p, rc, n), np.float32)
 
     # shifted B stacks shared across symbols and chunks (only offsets a
     # live contributor actually uses)
