@@ -53,12 +53,19 @@ exits non-zero:
     line, the emulation's misses a lane of each call; then ``fs_shape``,
     the shape ``svt_scores_fs`` takes at 512, 256 and 128 lanes (threads a
     lane, lanes a CTA, registers, CTAs an SM);
-12. ``generic_main`` and ``generic_kernel_vs_plain``: a model outside the
-    uniform plans (the seeded tie-heavy model at 2,405 states) through
-    ``decode_batch`` and ``decode_path_batch`` of a ragged set, with the
-    launch counts read around that run (the generic arms); both generic
-    kernels against their plain versions on 512 lanes × 511 steps, and
-    the decodes against the oracle on a prefix;
+12. ``generic_main`` and ``generic_kernel_vs_plain``: the two models
+    outside the uniform plans whose main path is the generic arms of the
+    masked and path kernels (the seeded tie-heavy model at 2,405 states;
+    the TP phase's banded model, 2,432 states, offsets (1, 3), decoded
+    whole), each through ``decode_batch`` and ``decode_path_batch`` of a
+    uniform set (512 × 3,500) and a ragged set (the lengths of step 4),
+    with the launch counts read around each run; both generic kernels
+    against their plain versions on 512 lanes × 511 steps, and the decodes
+    against the oracle on a prefix; then each arm's ``time`` line on the
+    uniform set (with its launch's shape, ``fused.generic_shape``, and on
+    the tie-heavy model the plain versions' times) and at each ragged
+    bucket (``generic_ragged_buckets``), each with its bound from the
+    model's own generic count;
 13. ``dense_main``: ``ViterbiDecoder(mode="dense", device="cuda")`` at the
     dense baseline's shape, the first 50 lanes of the uniform set
     (``prepare_batch``/``run_batch``), ``decode_batch`` of the first 50
@@ -208,9 +215,12 @@ exits non-zero:
     and path kernels and the backtrace kernel at each ragged bucket; then
     ``rank``: per kernel and arm, the sum over one call of its main path
     of (time - bound), the order in which the kernels lose most against
-    their bounds (the generic arms on the same calls, marked as off the
-    corpus model's main path). The FS kernel's and the backtrace's
-    ``time``, ``rank`` and ``kernels`` entries carry their chain floors.
+    their bounds (the generic arms forced on the same calls, marked as
+    off the corpus model's main path and bound by their generic count;
+    and the generic arms on the main path of step 12's two models, a
+    uniform and a ragged call of each decode, marked ``on_main_path_of``).
+    The FS kernel's and the backtrace's ``time``, ``rank`` and
+    ``kernels`` entries carry their chain floors.
 26. ``spec_struct``: ``StructuredSpecializedViterbi(level=2)`` on the
     corpus model: the factored form (the fused decoder) through
     ``run_spec_batch`` on both sets and ``run_spec`` on one sequence, with
@@ -238,10 +248,13 @@ exits non-zero:
 
 Every ``kernels`` entry carries its bound (``spec_viterbi_tpu_torch/
 probes/bounds.py``: the larger of its f32 operations over 33.45 T/s and
-its bytes over 3.35 TB/s, one count of an operator's work whichever arm
-runs it) for the work it was timed on; the planned arms' launches come
+its bytes over 3.35 TB/s; one count of an operator's work for each arm:
+the planned count for the planned arms, the generic count for the generic
+arms) for the work it was timed on; the planned arms' launches come
 from the corpus model's main path, the generic arms' from
-``generic_main``, ``minplus``'s from ``dense_main``, ``spec_main``,
+``generic_main`` (their times and bounds from the tie-heavy model's
+uniform launch, with the banded model's and the forced stand-in's beside
+them), ``minplus``'s from ``dense_main``, ``spec_main``,
 ``parallel_rest`` and ``time_parallel``, which adds its launches of the
 planned path arm and the backtrace to theirs; ``scheduler_cli`` adds its
 launches of every kernel its routes run (``scheduler_cli_launches``). The
@@ -539,77 +552,170 @@ def tp_dist(seed: int, uniform: list, scores, paths, tmp: str, rest: dict) -> No
           parallel_rest_seconds=rest_secs, parallel_rest_entries=sorted(want))
 
 
-def generic_main(seed: int, lengths) -> tuple[dict, dict]:
-    """``generic_main`` and ``generic_kernel_vs_plain``: the generic arms
-    of the masked and path kernels on a model outside the uniform plans
-    (the seeded tie-heavy model at the corpus stand-in's 2,405 states: one
-    diagonal, one dense row and column, three residual entries, no plans).
-    ``decode_batch`` and ``decode_path_batch`` of a ragged set with the
-    lengths ``lengths``, through ``ViterbiDecoder``, with the launch counts
-    read around that run; then both generic kernels against their plain
-    versions on 512 lanes x 511 steps, ragged and unmasked, and the
-    decodes against the oracle on a prefix. Returns the launch counts and
-    the kernels' max abs errors."""
+def generic_main(seed: int, card: str, lengths) -> dict:
+    """``generic_main``, ``generic_kernel_vs_plain`` and the generic arms'
+    ``time`` lines, on the two models outside the uniform plans whose main
+    path is the generic arms of the masked and path kernels: the seeded
+    tie-heavy model at the corpus stand-in's 2,405 states (one diagonal,
+    one dense row and column, three residual entries) and the TP phase's
+    banded model (2,432 states, offsets (1, 3)), decoded whole. For each:
+    ``decode_batch`` and ``decode_path_batch`` of a uniform set (512 x
+    3,500) and a ragged set (the lengths ``lengths``) through
+    ``ViterbiDecoder``, with the launch counts read around each run; both
+    generic kernels against their plain versions on 512 lanes x 511 steps,
+    ragged and unmasked, and the decodes against the oracle on a prefix;
+    then each arm's time on the uniform set and at each ragged bucket
+    (median of 5), each with its bound from the model's own generic count
+    and the shape of its launch, and on the tie-heavy model the plain
+    versions' times on the uniform set (one run after a warm-up: a plain
+    path scan takes seconds). Returns the launch counts, the max abs
+    errors and, per model, the uniform launch's times (``uniform``) and the
+    launches, ms and bound ms of its main path's calls (``calls``)."""
     import torch
 
     from spec_viterbi_tpu_torch import ViterbiDecoder, viterbi_path_oracle
-    from spec_viterbi_tpu_torch.io import generate_tie_heavy_hmm
+    from spec_viterbi_tpu_torch.io import generate_banded_hmm, generate_tie_heavy_hmm
     from spec_viterbi_tpu_torch.ops import fused
+    from spec_viterbi_tpu_torch.probes import bounds
+    from spec_viterbi_tpu_torch.probes.common import median_ms
     from spec_viterbi_tpu_torch.utils.batching import bucket_plan
 
-    hmm = generate_tie_heavy_hmm(STATES_MATCH, seed=seed)
-    dec = ViterbiDecoder(hmm, mode="structured", device="cuda")
-    fd = dec._fused
-    check(fd is not None and not fd._fs_ok and fd._scores_arm is fd._masked
-          and fd._path_arm is fd._masked, "the tie-heavy model takes the generic arms")
-    rng = np.random.default_rng(seed + 4)
-    # the last symbol is dead (no state emits it): left out here
-    ragged = [rng.integers(0, hmm.emit_num - 1, size=int(t)).astype(np.int32) for t in lengths]
-    plan = bucket_plan([len(s) for s in ragged], lane_block=fused.BB)
-    calls = sum(-(-len(idx) // max(fused.BB, fd._path_lane_budget(t))) for idx, t in plan)
-    fused.reset_launches()
-    secs = {}
-    t0 = time.perf_counter()
-    scores = dec.decode_batch(ragged)
-    secs["ragged_decode_batch"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    paths = dec.decode_path_batch(ragged)
-    secs["ragged_decode_path_batch"] = time.perf_counter() - t0
-    counts = dict(fused.launches)
-    check(counts == {**ZERO_LAUNCHES, "scores_masked": len(plan), "path": calls, "backtrace": calls},
-          f"the generic arms ran every bucket: {counts}")
-    check(all(np.array_equal(sc, s) for (sc, _), s in zip(paths, scores)), "path scores == scores")
-    check(all(bool(np.isfinite(s).any()) for s in scores), "generic scores reach a state")
-    phase("generic_main", states=hmm.states_num, n=fd.n, seconds=secs, launches=counts,
-          buckets=[[len(i), t] for i, t in plan])
-
+    models = (
+        ("tie_heavy", generate_tie_heavy_hmm(STATES_MATCH, seed=seed)),
+        ("banded", generate_banded_hmm(TP_STATES, TP_OFFSETS, TP_SYMBOLS, seed=seed)),
+    )
+    totals = dict(ZERO_LAUNCHES)
     errs = {"scores_masked": 0.0, "path": 0.0}
-    steps = GENERIC_CHECK_STEPS
-    for name, seqs in (("ragged", [s[: steps + 1] for s in ragged]),
-                       ("uniform", [np.resize(s, steps + 1) for s in ragged])):
-        st, ln, m = fd.prepare(seqs, t_pad=steps + 1)
-        check(m == (name == "ragged"), f"generic check masking, {name}")
+    out = {"launches": totals, "errs": errs, "models": {}}
+    for k, (name, hmm) in enumerate(models):
+        dec = ViterbiDecoder(hmm, mode="structured", device="cuda")
+        fd = dec._fused
+        t = fd._masked
+        check(fd is not None and not fd._fs_ok and fd._scores_arm is t and fd._path_arm is t,
+              f"the {name} model takes the generic arms")
+        rng = np.random.default_rng(seed + 4 + k)
+        # the tie-heavy model's last symbol is dead (no state emits it): left out here
+        live = hmm.emit_num - 1 if name == "tie_heavy" else hmm.emit_num
+        uniform = [rng.integers(0, live, size=T_LEN).astype(np.int32) for _ in range(LANES)]
+        ragged = [rng.integers(0, live, size=int(x)).astype(np.int32) for x in lengths]
+        plan = bucket_plan([len(s) for s in ragged], lane_block=fused.BB)
+        budget = fd._path_lane_budget
+        calls_u = -(-LANES // max(fused.BB, budget(T_LEN)))
+        calls_r = sum(-(-len(idx) // max(fused.BB, budget(tq))) for idx, tq in plan)
+        secs, got = {}, {}
+        for run, fn, want in (
+            ("uniform_decode_batch", lambda: dec.decode_batch(uniform), {"scores_masked": 1}),
+            ("ragged_decode_batch", lambda: dec.decode_batch(ragged), {"scores_masked": len(plan)}),
+            ("uniform_decode_path_batch", lambda: dec.decode_path_batch(uniform),
+             {"path": calls_u, "backtrace": calls_u}),
+            ("ragged_decode_path_batch", lambda: dec.decode_path_batch(ragged),
+             {"path": calls_r, "backtrace": calls_r}),
+        ):
+            fused.reset_launches()
+            t0 = time.perf_counter()
+            got[run] = fn()
+            secs[run] = time.perf_counter() - t0
+            counts = dict(fused.launches)
+            check(counts == {**ZERO_LAUNCHES, **want}, f"{name} {run} ran the generic arms: {counts}")
+            for key, v in counts.items():
+                totals[key] += v
+        for kind in ("uniform", "ragged"):
+            scores, paths = got[f"{kind}_decode_batch"], got[f"{kind}_decode_path_batch"]
+            check(all(np.array_equal(sc, s) for (sc, _), s in zip(paths, scores)),
+                  f"{name} {kind} path scores == scores")
+            seqs = uniform if kind == "uniform" else ragged
+            # a banded (1, 3) path moves up a state or three a symbol, so
+            # only a sequence shorter than the states can end on one
+            check(all(bool(np.isfinite(sc).any()) for sc, s in zip(scores, seqs)
+                      if name == "tie_heavy" or len(s) < hmm.states_num // 2),
+                  f"{name} {kind} scores reach a state")
+            check(all(p.shape == (len(s),) and bool((p >= 0).all() and (p < hmm.states_num).all())
+                      for (_, p), s in zip(paths, seqs)),
+                  f"{name} {kind} paths of the right length and range")
+        phase("generic_main", model=name, states=hmm.states_num, n=fd.n, seconds=secs,
+              launches={"scores_masked": 1 + len(plan), "path": calls_u + calls_r,
+                        "backtrace": calls_u + calls_r},
+              buckets=[[len(i), tq] for i, tq in plan])
+        del got
+
+        steps = GENERIC_CHECK_STEPS
+        for kind, seqs in (("ragged", [s[: steps + 1] for s in ragged]),
+                           ("uniform", [s[: steps + 1] for s in uniform])):
+            st, ln, m = fd.prepare(seqs, t_pad=steps + 1)
+            check(m == (kind == "ragged"), f"generic check masking, {kind}")
+            v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+            ln = ln if m else None
+            kern = fused.scores_masked(t, fd.em, v0, st[1:], ln)
+            same, err = equal_with_err(kern, fused.scores_masked_plain(t, fd.em_t, v0, st[1:], ln))
+            check(same, f"generic masked kernel == plain, {name}, {kind}")
+            errs["scores_masked"] = max(errs["scores_masked"], err)
+            k_out, k_src = fused.path(t, fd.em, v0, st[1:], ln)
+            p_out, p_src = fused.path_plain(t, fd.em_t, v0, st[1:], ln)
+            same, err = equal_with_err(k_out, p_out)
+            check(same and torch.equal(k_src, p_src), f"generic path kernel == plain, {name}, {kind}")
+            check(torch.equal(k_out, kern), f"generic path carry == generic scores, {name}")
+            errs["path"] = max(errs["path"], err)
+            del k_src, p_src
+        prefix = [s[: 16 * (j + 1)] for j, s in enumerate(ragged[:4])]
+        for s, sc, (psc, p) in zip(prefix, dec.decode_batch(prefix), dec.decode_path_batch(prefix)):
+            want_sc, want_p = viterbi_path_oracle(hmm, s)
+            check(np.array_equal(sc, want_sc) and np.array_equal(psc, want_sc) and np.array_equal(p, want_p),
+                  f"generic arms == oracle ({name}, {hmm.states_num} states, {len(s)} symbols)")
+        phase("generic_kernel_vs_plain", model=name, steps=steps, lanes=len(ragged),
+              **{f"{key}_max_abs_err": e for key, e in errs.items()})
+
+        # each arm's time on the uniform set (one launch of 512 lanes, as
+        # decode_batch runs it) and at each ragged bucket, against the
+        # bound of the model's own generic count
+        sop = fd.sop
+        op = bounds.operator_step(sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx),
+                                  planned=False)
+        st, _, m = fd.prepare(uniform)
+        check(not m, f"{name} uniform set is unmasked")
         v0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
-        ln = ln if m else None
-        k = fused.scores_masked(fd._masked, fd.em, v0, st[1:], ln)
-        same, err = equal_with_err(k, fused.scores_masked_plain(fd._masked, fd.em_t, v0, st[1:], ln))
-        check(same, f"generic masked kernel == plain outside the plans, {name}")
-        errs["scores_masked"] = max(errs["scores_masked"], err)
-        k_out, k_src = fused.path(fd._masked, fd.em, v0, st[1:], ln)
-        p_out, p_src = fused.path_plain(fd._masked, fd.em_t, v0, st[1:], ln)
-        same, err = equal_with_err(k_out, p_out)
-        check(same and torch.equal(k_src, p_src), f"generic path kernel == plain outside the plans, {name}")
-        check(torch.equal(k_out, k), "generic path carry == generic scores")
-        errs["path"] = max(errs["path"], err)
-        del k_src, p_src
-    prefix = [s[: 16 * (j + 1)] for j, s in enumerate(ragged[:4])]
-    for s, sc, (psc, p) in zip(prefix, dec.decode_batch(prefix), dec.decode_path_batch(prefix)):
-        want_sc, want_p = viterbi_path_oracle(hmm, s)
-        check(np.array_equal(sc, want_sc) and np.array_equal(psc, want_sc) and np.array_equal(p, want_p),
-              f"generic arms == oracle ({hmm.states_num} states, {len(s)} symbols)")
-    phase("generic_kernel_vs_plain", steps=steps, lanes=len(ragged),
-          **{f"{k}_max_abs_err": e for k, e in errs.items()})
-    return counts, errs
+        obs = st[1:]
+        n_steps = obs.shape[0]
+        fns = {"scores_masked": (lambda: fused.scores_masked(t, fd.em, v0, obs, None),
+                                 lambda: fused.scores_masked_plain(t, fd.em_t, v0, obs, None)),
+               "path": (lambda: fused.path(t, fd.em, v0, obs, None),
+                        lambda: fused.path_plain(t, fd.em_t, v0, obs, None))}
+        uni = {}
+        for arm, (kern_fn, plain_fn) in fns.items():
+            work = (bounds.masked_scores if arm == "scores_masked" else bounds.path)(
+                op, LANES, n_steps, LANES * n_steps, hmm.emit_num, False)
+            ms = median_ms(kern_fn)
+            row = {"ms": ms, "us_per_step": ms * 1e3 / n_steps, "bound_ms": work.bound()[0],
+                   "bound_by": work.bound()[1],
+                   "shape": fused.generic_shape(t, LANES, fd.device, path=arm == "path")}
+            if name == "tie_heavy":
+                row["plain_ms"] = median_ms(plain_fn, repeats=1)
+                row["plain_repeats"] = 1
+            uni[arm] = row
+            phase("time", kernel=arm, model=name, card=card, lanes=LANES, steps=n_steps, **row)
+        del fns
+        calls = {arm: [1, uni[arm]["ms"], uni[arm]["bound_ms"]] for arm in uni}
+        rows = []
+        for idx, tq in plan:
+            st, ln, _ = fd.prepare([ragged[i] for i in idx], t_pad=tq)
+            bv0 = fd.em_t[:, st[0].long()] + fd.pi[:, None]
+            b_steps, b_lanes = st.shape[0] - 1, len(idx)
+            lane_steps = int((ln.long() - 1).clamp(0, b_steps).sum())
+            row = {"lanes": b_lanes, "steps": b_steps}
+            for arm in ("scores_masked", "path"):
+                fn = fused.scores_masked if arm == "scores_masked" else fused.path
+                ms = median_ms(lambda: fn(t, fd.em, bv0, st[1:], ln))
+                work = (bounds.masked_scores if arm == "scores_masked" else bounds.path)(
+                    op, b_lanes, b_steps, lane_steps, hmm.emit_num, True)
+                row[f"{arm}_ms"] = ms
+                row[f"{arm}_bound_ms"] = work.bound()[0]
+                calls[arm][0] += 1
+                calls[arm][1] += ms
+                calls[arm][2] += work.bound()[0]
+            rows.append(row)
+        phase("time", kernel="generic_ragged_buckets", model=name, card=card, buckets=rows)
+        out["models"][name] = {"uniform": uni, "calls": calls, "states": hmm.states_num,
+                               "steps": n_steps}
+    return out
 
 
 def _spec_launches(lengths, level: int) -> int:
@@ -2753,7 +2859,8 @@ def main() -> int:
     again = checked_backtraces("path stream finalize (chunks)", lambda: eng.stream_path_finalize(st), bt_calls)
     check(np.array_equal(again[1], paths_s), "path stream finalize again")
 
-    generic_counts, generic_errs = generic_main(args.seed, lengths)
+    generic = generic_main(args.seed, card, lengths)
+    generic_counts, generic_errs = generic["launches"], generic["errs"]
     dense, minplus_entry = dense_and_spec(args.seed, card, hmm, uniform, ragged, scores_u, scores_r,
                                           paths_u[0])
     rest = parallel_rest(card, hmm, fd, uniform, ragged, scores_u, scores_r, dense, stream_ref)
@@ -2781,17 +2888,22 @@ def main() -> int:
 
     # ---- times at the uniform shape: each arm of the masked and path
     # kernels on the corpus model's inputs (the planned arms are what its
-    # main path runs; the generic arms would run the same calls without
+    # main path runs; the generic arms, forced, run the same calls without
     # the plans) ------------------------------------------------------------
     steps = obs.shape[0]
     sop = fd.sop
-    # one count of the operator's work, whichever kernel or arm runs it
-    op_step = bounds.operator_step(sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx),
-                                   planned=fd._fs is not None)
+    # one count of the operator's work for each kernel: the planned count
+    # where the kernel uses the plans, the generic count for the generic arms
+    op_planned = bounds.operator_step(sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx),
+                                      planned=fd._fs is not None)
+    op_generic = bounds.operator_step(sop.n, len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx),
+                                      planned=False)
+    op_of = {"scores_fs": op_planned, "scores_masked_planned": op_planned, "path_planned": op_planned,
+             "scores_masked": op_generic, "path": op_generic}
     arm = {"scores_masked": fd._masked, "scores_masked_planned": fd._fs,
            "path": fd._masked, "path_planned": fd._fs}
     bound = {
-        "scores_fs": bounds.fs_scores(op_step, LANES, steps, hmm.emit_num).bound(),
+        "scores_fs": bounds.fs_scores(op_planned, LANES, steps, hmm.emit_num).bound(),
         "backtrace": bounds.backtrace(half, steps).bound(),
     }
     timed = {
@@ -2801,7 +2913,7 @@ def main() -> int:
         ),
     }
     for name in ("scores_masked_planned", "scores_masked"):
-        bound[name] = bounds.masked_scores(op_step, LANES, steps, LANES * steps, hmm.emit_num,
+        bound[name] = bounds.masked_scores(op_of[name], LANES, steps, LANES * steps, hmm.emit_num,
                                            True).bound()
         timed[name] = (
             median_ms(lambda: fused.scores_masked(arm[name], fd.em, v0, obs, lens_t)),
@@ -2821,7 +2933,7 @@ def main() -> int:
               bound_ms=bound[name][0], bound_by=bound[name][1], **chain.get(name, {}))
     pv0, pobs = path_args
     for name in ("path_planned", "path"):
-        bound[name] = bounds.path(op_step, half, steps, half * steps, hmm.emit_num, False).bound()
+        bound[name] = bounds.path(op_of[name], half, steps, half * steps, hmm.emit_num, False).bound()
         timed[name] = (
             median_ms(lambda: fused.path(arm[name], fd.em, pv0, pobs, None)),
             median_ms(lambda: fused.path_plain(arm[name], fd.em_t, pv0, pobs, None),
@@ -2853,10 +2965,10 @@ def main() -> int:
         per_call[name][1] += launches * ms
         per_call[name][2] += launches * work.bound()[0]
 
-    add("scores_fs", 1, timed["scores_fs"][0], bounds.fs_scores(op_step, LANES, steps, hmm.emit_num))
+    add("scores_fs", 1, timed["scores_fs"][0], bounds.fs_scores(op_planned, LANES, steps, hmm.emit_num))
     calls = -(-LANES // max(fused.BB, half))
     for name in ("path_planned", "path"):
-        add(name, calls, timed[name][0], bounds.path(op_step, half, steps, half * steps, hmm.emit_num, False))
+        add(name, calls, timed[name][0], bounds.path(op_of[name], half, steps, half * steps, hmm.emit_num, False))
     add("backtrace", calls, timed["backtrace"][0], bounds.backtrace(half, steps))
     # the chain floor of a main-path call: the FS launch's, and a
     # shared-memory hop for every step of every backtrace launch
@@ -2872,10 +2984,10 @@ def main() -> int:
         for name, t in arm.items():
             if name.startswith("path"):
                 ms = median_ms(lambda: fused.path(t, fd.em, bv0, st[1:], ln))
-                work = bounds.path(op_step, b_lanes, b_steps, lane_steps, hmm.emit_num, True)
+                work = bounds.path(op_of[name], b_lanes, b_steps, lane_steps, hmm.emit_num, True)
             else:
                 ms = median_ms(lambda: fused.scores_masked(t, fd.em, bv0, st[1:], ln))
-                work = bounds.masked_scores(op_step, b_lanes, b_steps, lane_steps, hmm.emit_num, True)
+                work = bounds.masked_scores(op_of[name], b_lanes, b_steps, lane_steps, hmm.emit_num, True)
             add(name, 1, ms, work)
             row[f"{name}_ms"] = ms
         out, src = fused.path(fd._fs, fd.em, bv0, st[1:], ln)
@@ -2888,29 +3000,36 @@ def main() -> int:
     phase("time", kernel="ragged_buckets", card=card, buckets=bucket_times)
     for e in window_kernels:
         per_call[e["name"]] = [e["decode_launches"], e["decode_ms"], e["decode_bound_ms"]]
-    rank = sorted(((name, n, ms, b, ms - b) for name, (n, ms, b) in per_call.items()),
-                  key=lambda r: -r[4])
-    on_main = {"scores_masked": False, "path": False}  # the corpus main path runs the planned arms
+    # the generic arms on the main path of the models that need them: a
+    # uniform and a ragged decode_batch (1 + 4 launches), a uniform and a
+    # ragged decode_path_batch (the same)
+    rank = [(name, None, n, ms, b, ms - b) for name, (n, ms, b) in per_call.items()]
+    for model, entry in generic["models"].items():
+        rank += [(name, model, n, ms, b, ms - b) for name, (n, ms, b) in entry["calls"].items()]
+    rank.sort(key=lambda r: -r[5])
+    # the corpus main path runs the planned arms; the stand-in's generic
+    # arms are forced
+    on_main = {"scores_masked": False, "path": False}
     phase("rank", card=card, by="sum over a main path's launches of (time - bound), ms",
           order=[{"name": name, "launches": n, "ms": ms, "bound_ms": b, "loss_ms": loss,
-                  "on_corpus_main_path": on_main.get(name, True),
+                  "on_corpus_main_path": model is None and on_main.get(name, True),
+                  **({"on_main_path_of": model} if model else {}),
                   **({"chain_floor_ms": call_floor[name]} if name in call_floor else {})}
-                 for name, n, ms, b, loss in rank])
+                 for name, model, n, ms, b, loss in rank])
 
     struct_and_bench(args.seed, card, hmm, uniform, ragged, scores_u, scores_r, plan)
 
     # launches: the planned arms' from the corpus model's main path, the
-    # generic arms' from generic_main's
+    # generic arms' from generic_main's; the generic arms' times and bounds
+    # from the main path of the tie-heavy model (its uniform decode_batch
+    # and decode_path_batch launch), the banded model's and the forced
+    # stand-in's beside them
     entries = (
         ("scores_fs", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:360", counts, err_fs, LANES),
         ("scores_masked_planned", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:203", counts,
          err_masked["scores_masked_planned"], LANES),
-        ("scores_masked", "scores.cu", "spec_viterbi_tpu/ops/fused_pallas.py:203", generic_counts,
-         max(err_masked["scores_masked"], generic_errs["scores_masked"]), LANES),
         ("path_planned", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:490", path_counts,
          err_path["path_planned"], half),
-        ("path", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:490", generic_counts,
-         max(err_path["path"], generic_errs["path"]), half),
         ("backtrace", "path.cu", "spec_viterbi_tpu/ops/fused_pallas.py:695", path_counts, err_bt, half),
     )
     kernels = [
@@ -2920,7 +3039,24 @@ def main() -> int:
          "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": None,
          "shape": f"{lanes} lanes x {steps} steps", **chain.get(name, {})}
         for name, src, replaces, launched, err, lanes in entries
-    ] + window_kernels + probe_kernels + [minplus_entry]
+    ]
+    tie, banded = generic["models"]["tie_heavy"], generic["models"]["banded"]
+    for name, replaces in (("scores_masked", "spec_viterbi_tpu/ops/fused_pallas.py:203"),
+                           ("path", "spec_viterbi_tpu/ops/fused_pallas.py:490")):
+        u = tie["uniform"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "spec_viterbi_tpu_torch/csrc/generic.cuh",
+            "replaces": replaces, "launches": generic_counts[name],
+            "max_abs_err": max(err_masked["scores_masked"] if name == "scores_masked" else err_path["path"],
+                               generic_errs[name]),
+            "ms": u["ms"], "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
+            "library_ms": None,
+            "shape": f"{LANES} lanes x {tie['steps']} steps, tie-heavy model ({tie['states']} states)",
+            "launch_shape": u["shape"],
+            "banded_ms": banded["uniform"][name]["ms"], "banded_bound_ms": banded["uniform"][name]["bound_ms"],
+            "stand_in_forced_ms": timed[name][0], "stand_in_forced_bound_ms": bound[name][0],
+        })
+    kernels += window_kernels + probe_kernels + [minplus_entry]
     for e in kernels:  # the time-parallel phase's launches of the fused kernels
         if e["name"] in ("path_planned", "backtrace"):
             e["launches"] += tpar[e["name"]]

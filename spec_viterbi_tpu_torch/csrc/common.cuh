@@ -26,7 +26,7 @@
 
 // One structured operator: diagonals, dense rows, dense columns, residual
 // entries; sp_row lists the special rows (column targets and residual
-// destinations) that one warp patches after the bulk pass.
+// destinations) that the patch warp of csrc/generic.cuh forms.
 struct ScoresDesc {
   int n, n_diag, n_row, n_col, n_res, n_special;
   int diag_off[MAX_DIAG];
@@ -115,37 +115,9 @@ __device__ __forceinline__ float ulp_bound(float x) {
 }
 
 // An operand value as f32: f32 tables as they are, bf16 tables (the
-// bf16_ops variant of the masked scores kernel) upcast exactly.
+// bf16_ops variant of the generic scores arm) upcast exactly.
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-// min over the diagonal and dense-row candidates of row i of an n-row
-// carry. The value arrays dv [D][stride] and rv [R][stride] hold row i at
-// column i: stride is n for a whole operator and the padded global state
-// count for a window (csrc/window.cu). A source outside [0, n) gives no
-// candidate. The descriptor is read from the kernel parameter (the
-// constant bank): a copy in shared memory could alias the carry, and the
-// compiler would then reload it for every state. FOLD (the short_chain
-// variant of the masked scores kernel) adds the emission e to each value
-// before the carry, (e + w) + cur[j], so the step rounds twice.
-template <bool FOLD = false, typename T>
-__device__ __forceinline__ float bulk_candidate(const ScoresDesc& desc, const T* __restrict__ dv,
-                                                const T* __restrict__ rv, int stride,
-                                                const float* cur, int n, int i, float e = 0.0f) {
-  float a = INFINITY;
-  for (int q = 0; q < desc.n_diag; ++q) {
-    const int j = i - desc.diag_off[q];
-    if (j >= 0 && j < n) {
-      const float w = ld(dv + (size_t)q * stride + i);
-      a = fminf(a, (FOLD ? e + w : w) + cur[j]);
-    }
-  }
-  for (int r = 0; r < desc.n_row; ++r) {
-    const float w = ld(rv + (size_t)r * stride + i);
-    a = fminf(a, (FOLD ? e + w : w) + cur[desc.row_idx[r]]);
-  }
-  return a;
-}
 
 // The tie rule of the path kernels, the oracle's np.argmin: a
 // lexicographic min over (value, source) among finite candidates. The
@@ -173,22 +145,5 @@ __device__ __forceinline__ void pair_min(float& v, int& i, float ov, int oi) {
   if (ov < v || (ov == v && oi < i)) {
     v = ov;
     i = oi;
-  }
-}
-
-// (value, source) of row i over the diagonal and dense-row candidates;
-// strides and bounds as in bulk_candidate. Sources are carry rows.
-__device__ __forceinline__ void bulk_pair(const ScoresDesc& desc, const float* __restrict__ dv,
-                                          const float* __restrict__ rv, int stride,
-                                          const float* cur, int n, int i, float& u, int& s) {
-  u = INFINITY;
-  s = INT_MAX;
-  for (int q = 0; q < desc.n_diag; ++q) {
-    const int j = i - desc.diag_off[q];
-    if (j >= 0 && j < n) take(u, s, dv[(size_t)q * stride + i] + cur[j], j);
-  }
-  for (int r = 0; r < desc.n_row; ++r) {
-    const int k = desc.row_idx[r];
-    take(u, s, rv[(size_t)r * stride + i] + cur[k], k);
   }
 }

@@ -13,8 +13,8 @@
 //                       direct read or by mma.sync against a one-hot.
 //
 // The third probe kernel, svt_scores_variant (the ablated B1 bodies), is
-// the masked scores kernel itself with compile-time flags, in
-// csrc/scores.cu.
+// the generic arm of the masked scores kernel itself with compile-time
+// flags (csrc/generic.cuh), in csrc/variants.cu.
 //
 // A probe measures, it serves no request: the pass and select probes
 // compute what the TPU bodies compute (tests/test_torch_probes.py holds

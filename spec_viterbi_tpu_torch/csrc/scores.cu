@@ -7,7 +7,12 @@
 //                      _make_unrolled_kernel without plans (masked, any
 //                      fused-eligible operator: diagonals, dense rows,
 //                      dense columns and at most MAX_RES residual entries):
-//                      the generic arm.
+//                      the generic arm, generic_kernel<L, C_CAP, false, 0, *>
+//                      of csrc/generic.cuh (redesigned for this card, see
+//                      there: L lanes a CTA, the operator in shared memory
+//                      once a launch, one barrier a step, the column
+//                      minima folded from v_new, the special rows formed
+//                      before the barrier by the patch warp).
 //   svt_scores_masked_planned
 //                      replaces _make_unrolled_kernel with its col_plan and
 //                      row_plan (fused_pallas.py:289-343, launched with
@@ -20,18 +25,17 @@
 //                      fetched a step ahead (scores_fs_kernel, below).
 //
 // The planned arm exists because the generic step pays for what the plans
-// make scalar: a per-column block reduce of every dense column and a full
-// rv vector read per dense row (the S4 ablations put the columns at 1.85
-// and the patch at 1.65 of 6.77 us/step at 512 lanes). With the plans the
-// step is the FS kernel's: one shared column min folded into the bulk
-// pass from v_new, one scalar uniform-row candidate, and a flattened table
-// of scalar candidates for the special rows. The mask costs nothing here:
-// a lane that is done leaves its loop.
+// make scalar: a per-column reduce of every dense column and a full rv
+// vector read per dense row. With the plans the step is the FS kernel's:
+// one shared column min folded into the bulk pass from v_new, one scalar
+// uniform-row candidate, and a flattened table of scalar candidates for
+// the special rows. The mask costs nothing here: a lane that is done
+// leaves its loop.
 //
-// A third entry point, svt_scores_variant (loaded by ops/probes.py),
-// launches the masked kernel with compile-time flags that strip or change
-// one part of its step, so the probes' ablations always time the kernel
-// that production runs.
+// A third entry point, svt_scores_variant (csrc/variants.cu, loaded by
+// ops/probes.py), launches the generic arm's template with compile-time
+// flags that strip or change one part of its step (csrc/generic.cuh), so
+// the probes' ablations always time the kernel that production runs.
 //
 // Recurrence per lane b, in -log2 space with +inf as the semiring zero:
 //   v'[i] = em[o_t][i] + min(candidates of row i),
@@ -40,211 +44,15 @@
 // Build without --use_fast_math: flush-to-zero or approximate adds would
 // break that.
 //
-// What bounds them: a serial loop over T steps, each ending in block-wide
-// barriers and a min-reduction; the bytes per step are small (one f32
-// emission row of n floats, read from L2). So the cost is the latency of
-// the per-step barrier and reduction, not bandwidth. The design keeps the
-// whole [n] carry of one lane in shared memory for the whole sequence
-// (double-buffered, 2 * n * 4 bytes), makes one pass over the states per
-// step, and lets one warp patch the few special rows after the pass.
-// One CTA owns one lane, so a lane that is done stops (the masked
-// kernel's per-lane freeze) and lanes never wait for each other.
+// What bounds them: a serial loop over T steps, each ending in a block
+// barrier; the bytes per step are small (one f32 emission row of n floats
+// a lane, read from L2). So the cost is the latency of the step's chain
+// and, at many lanes, the SM's issue rate, not bandwidth. Each design keeps
+// a lane's [n] carry in shared memory for the whole sequence
+// (double-buffered, 2 * n * 4 bytes) and makes one pass over the states
+// per step.
 
-#include <type_traits>
-
-#include "common.cuh"
-
-// Compile-time flags of the masked kernel, 0 in production. Each other
-// value (one at a time; ops/probes.py mirrors the bits) changes or strips
-// one part of the step, for the per-component cost breakdown of the probes
-// (entry point svt_scores_variant, which replaces the B1 bodies that the
-// TPU probes patch in at spec_viterbi_tpu/ops/fused_pallas.py:1323):
-//   BF16_OPS     dv, rv, cv and the emission table stored as bf16 and
-//                upcast (residual values rounded to bf16 in the descriptor):
-//                the all-bf16 arm of scripts/exp_roofline.py::
-//                _make_bf16_kernel.
-//   EM_STAGED    the emission rows of the next EM_STAGE_STEPS steps copied
-//                into shared memory with cp.async one block ahead, double-
-//                buffered: the counterpart of exp_roofline.py::
-//                _make_embatch_kernel's one wide emission fetch per grid
-//                cell. Exact.
-//   NO_COLS      no dense-column reduces (the special rows keep their bulk
-//                and residual candidates): scripts/exp_kernel_variants.py::
-//                make_variant_kernel's no_cols.
-//   NO_EM        one constant emission row, em[0]: its no_mxu.
-//   NO_SPECIAL   no column reduces, no special-row patch, no middle barrier:
-//                its no_spec.
-//   SHORT_CHAIN  em + dv and em + rv formed before the carry is read, so the
-//                chain after the carry load is one add and the mins:
-//                exp_kernel_variants.py::make_shortchain_kernel. Rounds
-//                differently (timing only).
-// The ablations give wrong scores on purpose; each flag's plain version in
-// ops/probes.py computes what it computes, and the kernel equals it.
-#define VF_BF16_OPS 1
-#define VF_EM_STAGED 2
-#define VF_NO_COLS 4
-#define VF_NO_EM 8
-#define VF_NO_SPECIAL 16
-#define VF_SHORT_CHAIN 32
-#define EM_STAGE_STEPS 4
-
-// The operand type of a flag set: bf16 under BF16_OPS, else f32.
-template <int FLAGS>
-using ScoresElem = typename std::conditional<(FLAGS & VF_BF16_OPS) != 0, __nv_bfloat16, float>::type;
-
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-// C_CAP bounds the dense columns whose partial mins each thread keeps in
-// registers; the entry point picks the smallest instantiation that fits.
-template <int C_CAP, int FLAGS = 0>
-__global__ void __launch_bounds__(SVT_THREADS)
-scores_masked_kernel(const ScoresDesc desc, const ScoresElem<FLAGS>* __restrict__ dv,
-                     const ScoresElem<FLAGS>* __restrict__ rv,
-                     const ScoresElem<FLAGS>* __restrict__ cv,
-                     const ScoresElem<FLAGS>* __restrict__ em, const float* __restrict__ v0,
-                     const int* __restrict__ obs, const int* __restrict__ lengths,
-                     float* __restrict__ out, int batch, int steps) {
-  constexpr bool kStaged = FLAGS & VF_EM_STAGED;
-  constexpr bool kNoEm = FLAGS & VF_NO_EM;
-  constexpr bool kSpecial = !(FLAGS & VF_NO_SPECIAL);
-  constexpr bool kCols = kSpecial && !(FLAGS & VF_NO_COLS);
-  constexpr bool kShort = FLAGS & VF_SHORT_CHAIN;
-  constexpr int U = EM_STAGE_STEPS;
-  extern __shared__ float carry[];  // [2][n]; EM_STAGED: then the staged rows [2][U][n]
-  __shared__ float red[SVT_WARPS][C_CAP];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int n = desc.n, n_col = desc.n_col;
-  for (int i = tid; i < n; i += SVT_THREADS) carry[i] = v0[(size_t)i * batch + b];
-  const int my_steps = lane_steps(lengths, b, steps);
-
-  // EM_STAGED: request the emission rows of steps [t_first, t_first + U)
-  // into `dst`
-  float* const stage = carry + 2 * n;
-  auto request = [&](float* dst, int t_first) {
-    for (int u = 0; u < U && t_first + u < my_steps; ++u) {
-      const float* src = (const float*)em + (size_t)obs[(size_t)(t_first + u) * batch + b] * n;
-      for (int c = tid * 4; c < n; c += SVT_THREADS * 4) cp_async16(dst + u * n + c, src + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  if constexpr (kStaged) request(stage, 0);
-  __syncthreads();
-
-  float* cur = carry;
-  float* nxt = carry + n;
-  for (int t = 0; t < my_steps; ++t) {
-    const ScoresElem<FLAGS>* em_row;
-    if constexpr (kStaged) {
-      if (t % U == 0) {
-        // rows of this block arrived one block ago; request the next block
-        // into the other buffer, whose readers passed the last step's barrier
-        request(stage + (((t / U) + 1) & 1) * U * n, t + U);
-        asm volatile("cp.async.wait_group 1;\n" ::);
-        __syncthreads();
-      }
-      em_row = stage + (((t / U) & 1) * U + t % U) * n;
-    } else if constexpr (kNoEm) {
-      em_row = em;
-    } else {
-      em_row = em + (size_t)obs[(size_t)t * batch + b] * n;
-    }
-    float cpart[C_CAP];
-#pragma unroll
-    for (int c = 0; c < C_CAP; ++c) cpart[c] = INFINITY;
-    for (int i = tid; i < n; i += SVT_THREADS) {
-      if constexpr (kShort)
-        nxt[i] = bulk_candidate<true>(desc, dv, rv, n, cur, n, i, ld(em_row + i));
-      else
-        nxt[i] = ld(em_row + i) + bulk_candidate(desc, dv, rv, n, cur, n, i);
-      if constexpr (kCols) {
-        const float vi = cur[i];
-        // one 32-bit index: cv + c * n + i would be two 64-bit pointer
-        // adds, two more instructions a column in the hottest loop
-#pragma unroll
-        for (int c = 0; c < C_CAP; ++c)
-          if (c < n_col) cpart[c] = fminf(cpart[c], ld(cv + (c * n + i)) + vi);
-      }
-    }
-    if constexpr (kSpecial) {
-      if constexpr (kCols) {
-#pragma unroll
-        for (int c = 0; c < C_CAP; ++c) {
-          if (c < n_col) {
-            const float m = warp_min(cpart[c]);
-            if (lane == 0) red[warp][c] = m;
-          }
-        }
-      }
-      __syncthreads();
-
-      // one warp patches the special rows: dense-column targets and
-      // residual destinations
-      if (warp == 0) {
-        for (int s = lane; s < desc.n_special; s += 32) {
-          const int r = desc.sp_row[s];
-          float a = kShort ? INFINITY : bulk_candidate(desc, dv, rv, n, cur, n, r);
-          if constexpr (kCols) {
-            for (int c = 0; c < n_col; ++c) {
-              if (desc.col_idx[c] != r) continue;
-              for (int w = 0; w < SVT_WARPS; ++w) a = fminf(a, red[w][c]);
-            }
-          }
-          for (int z = 0; z < desc.n_res; ++z)
-            if (desc.res_dst[z] == r) a = fminf(a, desc.res_val[z] + cur[desc.res_src[z]]);
-          const float e = ld(em_row + r);
-          nxt[r] = kShort ? fminf(bulk_candidate<true>(desc, dv, rv, n, cur, n, r, e), e + a) : e + a;
-        }
-      }
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  if constexpr (kStaged) asm volatile("cp.async.wait_group 0;\n" ::);
-  for (int i = tid; i < n; i += SVT_THREADS) out[(size_t)i * batch + b] = cur[i];
-}
-
-template <int C_CAP, int FLAGS>
-static int launch_masked(const ScoresDesc* desc, const void* dv, const void* rv, const void* cv,
-                         const void* em, const float* v0, const int* obs, const int* lengths,
-                         float* out, int batch, int steps, void* stream) {
-  using T = ScoresElem<FLAGS>;
-  size_t smem = 2 * (size_t)desc->n * sizeof(float);
-  if (FLAGS & VF_EM_STAGED) smem += 2 * (size_t)EM_STAGE_STEPS * desc->n * sizeof(float);
-  auto kernel = scores_masked_kernel<C_CAP, FLAGS>;
-  int rc = set_smem((const void*)kernel, smem);
-  if (rc) return rc;
-  kernel<<<batch, SVT_THREADS, smem, (cudaStream_t)stream>>>(
-      *desc, (const T*)dv, (const T*)rv, (const T*)cv, (const T*)em, v0, obs, lengths, out, batch,
-      steps);
-  return (int)cudaGetLastError();
-}
-
-template <int C_CAP>
-static int launch_variant(int flags, const ScoresDesc* desc, const void* dv, const void* rv,
-                          const void* cv, const void* em, const float* v0, const int* obs,
-                          const int* lengths, float* out, int batch, int steps, void* stream) {
-#define SVT_VARIANT(F) \
-  case F:              \
-    return launch_masked<C_CAP, F>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream)
-  switch (flags) {
-    SVT_VARIANT(0);
-    SVT_VARIANT(VF_BF16_OPS);
-    SVT_VARIANT(VF_EM_STAGED);
-    SVT_VARIANT(VF_NO_COLS);
-    SVT_VARIANT(VF_NO_EM);
-    SVT_VARIANT(VF_NO_SPECIAL);
-    SVT_VARIANT(VF_SHORT_CHAIN);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SVT_VARIANT
-}
+#include "generic.cuh"
 
 // The planned arm of svt_scores_masked: lane b takes lane_steps(lengths,
 // b, steps) steps and leaves the loop, which is the whole mask, since one
@@ -583,23 +391,16 @@ const char* svt_error_string(int code) { return cudaGetErrorString((cudaError_t)
 int svt_scores_masked(const ScoresDesc* desc, const float* dv, const float* rv, const float* cv,
                       const float* em, const float* v0, const int* obs, const int* lengths,
                       float* out, int batch, int steps, void* stream) {
-  const int c = desc->n_col;
-  if (c <= 2) return launch_masked<2, 0>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
-  if (c <= 8) return launch_masked<8, 0>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
-  return launch_masked<MAX_COL, 0>(desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
+  const GenArgs args{dv, rv, cv, em, v0, obs, lengths, out, nullptr, batch, steps};
+  return gen_launch<false, 0>(desc, args, stream);
 }
 
-// The masked kernel with one of the flags above (0: the production kernel
-// itself), at most 8 dense columns; operands bf16 under BF16_OPS.
-int svt_scores_variant(int flags, const ScoresDesc* desc, const void* dv, const void* rv,
-                       const void* cv, const void* em, const float* v0, const int* obs,
-                       const int* lengths, float* out, int batch, int steps, void* stream) {
-  const int c = desc->n_col;
-  if (c <= 2)
-    return launch_variant<2>(flags, desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
-  if (c <= 8)
-    return launch_variant<8>(flags, desc, dv, rv, cv, em, v0, obs, lengths, out, batch, steps, stream);
-  return (int)cudaErrorInvalidValue;
+// The shape svt_scores_masked's generic arm takes for `batch` lanes of the
+// operator `desc`: lanes a CTA, threads a CTA, registers a thread, resident
+// CTAs an SM, and whether the operator's tables sit in shared memory.
+int svt_scores_masked_shape(const ScoresDesc* desc, int batch, int* lanes_per_cta, int* threads,
+                            int* regs, int* ctas_per_sm, int* staged) {
+  return gen_shape<false>(desc, batch, lanes_per_cta, threads, regs, ctas_per_sm, staged);
 }
 
 // flags: the FS tables' per-state bytes, ST_SPECIAL and ST_USE_ACC included.
@@ -641,16 +442,21 @@ int svt_scores_fs_shape(int n, int batch, int* threads, int* regs, int* ctas_per
 
 // Registers a thread and resident CTAs an SM for n states of
 // svt_scores_fs in the shape of many lanes (which = 0) and of few (3), the
-// generic arm of svt_scores_masked at two dense columns (1) or its planned
-// arm (2): what decides how many lanes one wave of CTAs holds
-// (spec_viterbi_tpu_torch/probes/laneblock.py).
+// generic arm of svt_scores_masked in the shape it takes for 512 lanes of
+// the corpus model's operator (1) or its planned arm (2): what decides how
+// many lanes one wave of CTAs holds (spec_viterbi_tpu_torch/probes/
+// laneblock.py).
 int svt_scores_occupancy(int which, int n, int* regs, int* ctas_per_sm) {
   const size_t smem = 2 * (size_t)n * sizeof(float);
   if (which == 0 || which == 3) {
     const FsArm arm = which == 0 ? fs_arm<FS_WAVE_THREADS, FS_WAVE_CTAS>(n) : fs_arm<FS_LAT_THREADS, 1>(n);
     return occupancy_of(arm.kernel, arm.smem, regs, ctas_per_sm, arm.threads);
   }
-  if (which == 1) return occupancy_of((const void*)scores_masked_kernel<2>, smem, regs, ctas_per_sm);
+  if (which == 1) {
+    int lanes, threads, staged;
+    const ScoresDesc d = corpus_shaped_desc(n);
+    return gen_shape<false>(&d, 512, &lanes, &threads, regs, ctas_per_sm, &staged);
+  }
   if (which == 2) return occupancy_of((const void*)scores_planned_kernel, smem, regs, ctas_per_sm);
   return (int)cudaErrorInvalidValue;
 }

@@ -196,6 +196,8 @@ def library() -> ctypes.CDLL:
     lib.svt_scores_occupancy.restype = i32
     lib.svt_scores_fs_shape.argtypes = [i32, i32, vp, vp, vp]
     lib.svt_scores_fs_shape.restype = i32
+    for shape in (lib.svt_scores_masked_shape, lib.svt_path_shape):
+        shape.argtypes, shape.restype = [vp, i32] + [vp] * 5, i32
     i64 = ctypes.c_longlong
     lib.svt_minplus.argtypes = ([vp] * 5 + [i64] * 3 + [i32] * 4  # the product
                                 + [vp, i64, i64, vp, i32, vp, i32, i32]  # the step's epilogue

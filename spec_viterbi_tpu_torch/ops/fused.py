@@ -330,6 +330,25 @@ def scores_masked(
     return out
 
 
+def generic_shape(t: MaskedTables, batch: int, device: torch.device, path: bool = False) -> dict:
+    """The shape the generic arm of ``svt_scores_masked`` (or of
+    ``svt_path``) launches for ``batch`` lanes of ``t``'s operator on
+    ``device``, as the card reports it: lanes a CTA, threads a CTA,
+    registers a thread, resident CTAs an SM, and whether the operator's
+    value vectors sit in shared memory (else they are read from L2)."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    lib = _build.library()
+    out = [ctypes.c_int() for _ in range(5)]
+    entry = lib.svt_path_shape if path else lib.svt_scores_masked_shape
+    with torch.cuda.device(device):
+        rc = entry(ctypes.byref(t.desc), batch, *(ctypes.byref(x) for x in out))
+    _build.check(lib, rc, "svt_path_shape" if path else "svt_scores_masked_shape")
+    lanes, threads, regs, ctas, staged = (x.value for x in out)
+    return {"lanes_a_cta": lanes, "threads_a_cta": threads, "registers": regs, "ctas_per_sm": ctas,
+            "tables_in_shared_memory": bool(staged)}
+
+
 # ---- the frame-shifted kernel: svt_scores_fs ------------------------------
 
 

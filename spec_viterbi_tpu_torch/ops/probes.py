@@ -12,9 +12,9 @@ are in :mod:`spec_viterbi_tpu_torch.probes`.
 - :func:`probe_emsel` (kernel ``svt_probe_emsel``): P emission selects per
   step in one of five schemes, the ladder of
   ``scripts/exp_mxu_precision.py`` (``micro_mxu_prec``);
-- :func:`scores_variant` (kernel ``svt_scores_variant``): the production
-  masked scores kernel with compile-time flags (no flag: that kernel
-  itself), the B1 bodies that
+- :func:`scores_variant` (kernel ``svt_scores_variant``): the generic
+  arm of the production masked scores kernel with compile-time flags (no
+  flag: that kernel itself), the B1 bodies that
   ``exp_roofline.py`` (``_make_bf16_kernel``, ``_make_embatch_kernel``)
   and ``scripts/exp_kernel_variants.py`` (``make_variant_kernel``,
   ``make_shortchain_kernel``) patch into the Pallas decoder.
@@ -503,9 +503,10 @@ def scores_occupancy(kernel: str, n: int, device: torch.device) -> tuple[int, in
     """(registers a thread, resident CTAs an SM) for ``n`` states, as the
     card reports them, of ``svt_scores_fs`` (``"fs"``: the shape of many
     lanes; ``"fs_few_lanes"``: the shape one wave of which holds few
-    lanes), the generic and
-    planned arms of ``svt_scores_masked`` (``"masked"`` at two dense
-    columns, ``"masked_planned"``) or of ``svt_path`` (``"path"``,
+    lanes), the generic and planned arms of ``svt_scores_masked``
+    (``"masked"``: the shape the generic arm takes for 512 lanes of the
+    corpus model's operator, one diagonal, one dense row and two dense
+    columns; ``"masked_planned"``) or of ``svt_path`` (``"path"``,
     ``"path_planned"``)."""
     entry, which = OCCUPANCY_KERNELS[kernel]
     if torch.device(device).type != "cuda":

@@ -1,19 +1,18 @@
 """S4: the ablation of ``scripts/exp_kernel_variants.py``, on the H100.
 
-``svt_scores_variant`` launches ``svt_scores_masked``'s own kernel
-template (``csrc/scores.cu``) with compile-time flags; each ablation drops
-one component of the step (wrong scores on purpose), and its time against
-the baseline's is that component's cost. Timed on
-the corpus-shaped stand-in at 512 × 3,500, unmasked (a uniform batch), as
-the TPU harness timed its variants:
+``svt_scores_variant`` launches the template of ``svt_scores_masked``'s
+generic arm (``csrc/generic.cuh``) with compile-time flags; each ablation
+drops one component of the step (wrong scores on purpose), and its time
+against the baseline's is that component's cost. Timed on the
+corpus-shaped stand-in at 512 × 3,500, unmasked (a uniform batch), with
+the generic arm forced, as the TPU harness timed its variants:
 
-- ``baseline``: no flag, the very instantiation ``svt_scores_masked``
-  launches; held bit-equal to it, and its time beside that kernel's
-  shows the spread of a timing;
-- ``no_cols``: no dense-column reduces;
+- ``baseline``: no flag, ``svt_scores_masked`` itself; held bit-equal to
+  it, and its time beside that kernel's shows the spread of a timing;
+- ``no_cols``: no dense-column folds and merges;
 - ``no_em``: one constant emission row (the TPU's ``no_mxu``);
-- ``no_special``: no column reduces, no special-row patch, no middle
-  barrier;
+- ``no_special``: no column folds, no residual candidates, no patch warp
+  (the step has one barrier either way);
 - ``short_chain``: the emission folded into the candidates before the
   carry is read (``make_shortchain_kernel``).
 

@@ -10,13 +10,14 @@ and whether more lanes per CTA or more CTAs help. So this times:
 - the ``empty`` probe with the step's symbol added (``empty_run``'s
   body) at 1, 2 and 4 lanes per CTA, [2,432, 512] carries, 3,496 steps;
 - ``svt_scores_fs`` and both arms of ``svt_scores_masked`` (unmasked) on
-  the corpus-shaped stand-in at 128, 256, 512 and 1,024 lanes, one CTA a
-  lane (the batches repeat or cut the 512 sequences, so the lanes they
-  share must give the same scores bit for bit): flat times while the
-  chain's latency bounds a step, times that grow with the lanes once the
-  SMs' throughput does; with the registers a thread and the CTAs an SM of
-  these kernels and of both arms of ``svt_path``, as the card reports
-  them, so the lanes one wave holds.
+  the corpus-shaped stand-in at 128, 256, 512 and 1,024 lanes (one CTA a
+  lane, but the generic arm's L lanes a CTA; the batches repeat or cut
+  the 512 sequences, so the lanes they share must give the same scores
+  bit for bit): flat times while the chain's latency bounds a step, times
+  that grow with the lanes once the SMs' throughput does; with the
+  registers a thread and the CTAs an SM of these kernels and of both arms
+  of ``svt_path``, as the card reports them (the generic arms in their
+  shape at 512 lanes, with its lanes a CTA), so the lanes one wave holds.
 
 It also gives the chain floors, which the bounds of the production
 kernels leave out: the empty step's time at any carry length and CTA count
@@ -118,8 +119,13 @@ def run(rec: Record, device, seed: int = 0, corpus: CorpusBatch | None = None) -
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name in probes.OCCUPANCY_KERNELS:
         regs, ctas = probes.scores_occupancy(name, fd.n, device)
-        out[f"occupancy_{name}"] = rec.emit(f"occupancy_{name}", registers=regs, ctas_per_sm=ctas,
-                                            sms=sms, lanes_per_wave=ctas * sms, n=fd.n)
+        shape = {"lanes_a_cta": 1}
+        if name in ("masked", "path"):  # the generic arms take L lanes a CTA
+            g = fused.generic_shape(fd._masked, LANES, device, path=name == "path")
+            shape = {key: g[key] for key in ("lanes_a_cta", "tables_in_shared_memory")}
+        out[f"occupancy_{name}"] = rec.emit(
+            f"occupancy_{name}", registers=regs, ctas_per_sm=ctas, sms=sms,
+            lanes_per_wave=ctas * sms * shape["lanes_a_cta"], n=fd.n, **shape)
     first = None
     for lanes in FS_LANES:
         c = corpus.widened(lanes)

@@ -25,6 +25,7 @@ from spec_viterbi_tpu_torch.convert import structured_operator_from_reference
 from spec_viterbi_tpu_torch.io.generators import generate_profile_hmm
 from spec_viterbi_tpu_torch.ops import fused
 from test_torch_host import ref_from_port
+from test_torch_kernels import _generic_models
 
 torch.set_num_threads(1)
 
@@ -115,6 +116,33 @@ def test_masked_plain_random_structured(seed):
         _assert_exact(model, seqs, got)
         for g, p in zip(got, ref.decode_batch(seqs)):
             assert almost_equal_vec(g, p)
+
+
+GENERIC_MODELS = {name: ref_from_port(hmm) for name, hmm in _generic_models().items()}
+
+
+@pytest.mark.parametrize("batch", ["uniform", "ragged"])
+@pytest.mark.parametrize("name", sorted(GENERIC_MODELS))
+def test_generic_arm_plain_matches_jax(name, batch):
+    """The models the card tests hold the generic arms on (banded (1, 3),
+    tie-heavy banded (-1, 1), a model at the caps): the port's generic
+    scores arm (on the CPU, scores_masked_plain) bit-equal to the JAX XLA
+    structured path and the oracle, and within ±1.0 of the JAX Pallas
+    kernel in interpret mode."""
+    model = GENERIC_MODELS[name]
+    ref, port = _pair(model)
+    assert not port._fs_ok and port._scores_arm is port._masked
+    rng = np.random.default_rng(len(name) + len(batch))
+    # the tie-heavy banded model's last symbol is dead: one lane reads it
+    live = model.emit_num - (name == "tie_banded")
+    lengths = [24] * 5 if batch == "uniform" else [1, 2, 24, 9, 17]
+    seqs = _seqs(rng, lengths, emit=live)
+    seqs[-1][-1] = model.emit_num - 1
+    assert port.prepare(seqs)[2] is (batch == "ragged")
+    got = port.decode_batch(seqs)
+    _assert_exact(model, seqs, got)
+    for g, p in zip(got, ref.decode_batch(seqs)):
+        assert almost_equal_vec(g, p)
 
 
 def test_fs_plain_equals_masked_plain():

@@ -66,13 +66,71 @@ def _structured_model(rng, states, emit, offsets, residual):
     )
 
 
+def _caps_model(rng, states=256, emit=5, offsets=(1, -1, 3, -5), n_rows=4, n_cols=8, residual=8):
+    """A model whose operator sits at the generic arms' caps: full
+    diagonals at ``offsets``, ``n_rows`` dense rows, ``n_cols`` dense
+    columns and ``residual`` scattered entries (8 diagonals + rows +
+    columns + residual = 24 at the defaults, 8 of them residual), every
+    transition p in {1, 0.5, 0.25} so costs tie often (-0.0 among them)."""
+    levels = np.array([1.0, 0.5, 0.25])
+    entries = {}
+    for d in offsets:
+        for i in range(max(0, -d), min(states, states - d)):
+            entries[(i, i + d)] = rng.choice(levels)
+    picked = rng.choice(states, size=n_rows + n_cols, replace=False)
+    rows, cols = picked[:n_rows], picked[n_rows:]
+    for r in rows:
+        for j in range(states):
+            entries[(int(r), j)] = rng.choice(levels)
+    for c in cols:
+        for i in range(states):
+            entries[(i, int(c))] = rng.choice(levels)
+    res = set()
+    while len(res) < residual:
+        s_, d_ = (int(x) for x in rng.integers(0, states, size=2))
+        if s_ in rows or d_ in cols or d_ - s_ in offsets or (s_, d_) in entries:
+            continue
+        if any(d2 - s2 == d_ - s_ for s2, d2 in res):
+            continue
+        res.add((s_, d_))
+    for k in res:
+        entries[k] = rng.choice(levels)
+    keys = sorted(entries)
+    em = rng.choice(np.array([1.0, 0.5, 0.25, 0.0]), size=(emit, states), p=[0.35, 0.3, 0.25, 0.1])
+    hmm = HMM(
+        states_num=states,
+        emit_num=emit,
+        trans_rows=np.array([k[0] for k in keys], np.int64),
+        trans_cols=np.array([k[1] for k in keys], np.int64),
+        trans_probs=to_modified_prob_np(np.array([entries[k] for k in keys])),
+        emissions=to_modified_prob_np(em),
+        start_probabilities_cols=np.array([0, states // 3, states // 2], np.int64),
+        start_probabilities=to_modified_prob_np(np.array([0.5, 0.25, 0.25])),
+    )
+    sop = StructuredOperator.from_hmm(hmm)
+    assert (len(sop.diag_offsets), len(sop.row_idx), len(sop.col_idx), sop.residual_nnz) == (
+        len(offsets), n_rows, n_cols, residual)
+    return hmm
+
+
+def _generic_models():
+    """Models outside the uniform plans, on the generic arms: the state-
+    sharded decode's banded (1, 3) operator, its tie-heavy (-1, 1) one,
+    and a model at the caps (D + R + C + Z = 24, 8 residual entries)."""
+    return {
+        "banded_1_3": generate_banded_hmm(256, offsets=(1, 3), seed=2),
+        "tie_banded": generate_tie_heavy_banded_hmm(256, offsets=(-1, 1), seed=3),
+        "caps": _caps_model(np.random.default_rng(5)),
+    }
+
+
 def _models():
     rng = np.random.default_rng(0)
     return [
         pytest.param(generate_profile_hmm(126, seed=1), id="profile"),
         pytest.param(_structured_model(rng, 70, 6, (-1, 2), 3), id="neg_pos_residual"),
         pytest.param(_structured_model(rng, 50, 4, (0, -2), 0), id="self_loop"),
-    ]
+    ] + [pytest.param(hmm, id=name) for name, hmm in sorted(_generic_models().items())]
 
 
 def _path_models():
@@ -825,6 +883,132 @@ def test_scores_variant_equals_plain_on_card(cuda_device, hmm, name):
                 assert torch.equal(got, fused.scores_masked(fd._masked, fd.em, v0, st[1:], lens))
 
 
+def _generic_operator(rng, n, offsets, n_row, n_col, n_res, dead_row=None):
+    """A structured operator built directly, outside any HMM: diagonals at
+    ``offsets`` (+inf where the source falls outside the states), ``n_row``
+    dense rows, ``n_col`` dense columns into distinct states and ``n_res``
+    residual entries, every value drawn from {-0.0, +0.0, 1, 2, +inf} so
+    ties (a -0.0 against a +0.0 among them) are common; ``dead_row`` is a
+    state that no finite candidate reaches."""
+    levels = np.array([-0.0, 0.0, 1.0, 2.0, np.inf], np.float32)
+
+    def draw(*shape):
+        return rng.choice(levels, size=shape, p=[0.2, 0.2, 0.25, 0.25, 0.1]).astype(np.float32)
+
+    rows = np.arange(n)
+    diag = draw(len(offsets), n)
+    for q, d in enumerate(offsets):
+        diag[q, (rows - d < 0) | (rows - d >= n)] = np.inf
+    row_idx = tuple(int(x) for x in rng.choice(n, size=n_row, replace=False))
+    col_idx = tuple(int(x) for x in rng.choice(n, size=n_col, replace=False))
+    row_vals, col_vals = draw(n_row, n), draw(n_col, n)
+    res_src = rng.integers(0, n, size=n_res).astype(np.int32)
+    res_dst = rng.integers(0, n, size=n_res).astype(np.int32)
+    res_vals = draw(n_res)
+    if dead_row is not None:
+        diag[:, dead_row] = np.inf
+        row_vals[:, dead_row] = np.inf
+        res_vals[res_dst == dead_row] = np.inf
+        col_vals[[c == dead_row for c in col_idx]] = np.inf
+    return StructuredOperator(
+        n=n, states_num=n, diag_offsets=tuple(offsets), diag_vals=diag, row_idx=row_idx,
+        row_vals=row_vals, col_idx=col_idx, col_vals=col_vals, res_src=res_src, res_dst=res_dst,
+        res_vals=res_vals, nnz=0,
+    )
+
+
+# (n, offsets, dense rows, dense columns, residual entries): each C_CAP
+# instantiation of the generic arms (2, 8, 24 columns), MAX_RES residuals,
+# D + R + C + Z = 24, negative and multiple offsets, an odd n (the path
+# arm's pointers one at a time), and operators whose tables do not fit in
+# shared memory (read from L2)
+GENERIC_CASES = {
+    "c2_odd": (301, (1, -2), 1, 2, 3),
+    "c8_res8": (256, (0, 3), 2, 8, 8),
+    "c24": (130, (), 0, 24, 0),
+    "sum24": (257, (1, -1, 2, -3), 4, 8, 8),
+    "d8": (200, (1, 2, 3, -1, -2, -3, 5, -7), 0, 1, 0),
+    "l2_tables": (9000, (1, -1, 5, 7), 8, 4, 8),
+}
+
+
+def _generic_inputs(rng, sop, lanes, steps, emit, device):
+    """The operator's tables, an emission table with a dead symbol (every
+    state +inf), a carry with -0.0 and +0.0 entries and +inf rows, symbols,
+    and lengths from 0 (no step) up past the steps."""
+    n = sop.n
+    t = fused.MaskedTables.build(sop, sop.to(device))
+    em = rng.choice(np.array([0.0, 1.0, 2.0, np.inf], np.float32), size=(emit, n),
+                    p=[0.3, 0.3, 0.3, 0.1]).astype(np.float32)
+    em[-1] = np.inf
+    v0 = rng.choice(np.array([-0.0, 0.0, 1.0, 3.0, np.inf], np.float32), size=(n, lanes)).astype(np.float32)
+    v0[n // 3] = np.inf
+    obs = rng.integers(0, emit, size=(steps, lanes)).astype(np.int32)
+    obs[steps // 2, ::3] = emit - 1
+    lengths = rng.integers(0, steps + 3, size=lanes).astype(np.int32)
+    lengths[: min(lanes, 3)] = [0, 1, 2][: min(lanes, 3)]
+    dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    return t, dev(em), dev(v0), dev(obs), dev(lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,lanes", [
+    (case, lanes) for case in sorted(GENERIC_CASES)
+    # the 9,000-state operator at 1 and 2 lanes: its plain path scan is slow
+    for lanes in ((1, 2) if GENERIC_CASES[case][0] > 1000 else (1, 2, 130, 512))
+])
+def test_generic_arms_equal_plain_on_card(cuda_device, case, lanes):
+    """The generic arms of svt_scores_masked and svt_path against their
+    plain versions, masked (zero-length and one-step lanes among them) and
+    unmasked, at the caps of the descriptor and the arms' instantiations,
+    on ties of -0.0 against +0.0, all-+inf rows and a dead symbol; the path
+    arm's carry equals the scores arm's."""
+    n, offsets, n_row, n_col, n_res = GENERIC_CASES[case]
+    rng = np.random.default_rng(lanes * 101 + n)
+    sop = _generic_operator(rng, n, offsets, n_row, n_col, n_res, dead_row=n // 2)
+    steps = 9 if n > 1000 else 24
+    t, em, v0, obs, lengths = _generic_inputs(rng, sop, lanes, steps, 5, cuda_device)
+    shape = fused.generic_shape(t, lanes, cuda_device)
+    assert shape["tables_in_shared_memory"] == (case != "l2_tables")
+    for lens in (lengths, None):
+        got = fused.scores_masked(t, em, v0, obs, lens)
+        out, src = fused.path(t, em, v0, obs, lens)
+        want = fused.scores_masked_plain(t, em.T.contiguous(), v0, obs, lens)
+        p_out, p_src = fused.path_plain(t, em.T.contiguous(), v0, obs, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(out, p_out) and torch.equal(src, p_src)
+        assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+def test_generic_shape_on_card(cuda_device):
+    """The generic arms' shape: 512 threads a CTA; one lane a CTA for one
+    lane; 512 lanes of the corpus model's operator shape in one wave of 4
+    lanes a CTA, its tables in shared memory; 8 columns take at most 2
+    lanes a CTA; each shape's launch equal to the plain version."""
+    rng = np.random.default_rng(7)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n_col, lanes_cap in ((2, 4), (8, 2)):
+        sop = _generic_operator(rng, 2432, (1,), 1, n_col, 0)
+        t, em, v0, obs, lengths = _generic_inputs(rng, sop, 512, 6, 5, cuda_device)
+        for path in (False, True):
+            assert fused.generic_shape(t, 1, cuda_device, path=path)["lanes_a_cta"] == 1
+            s = fused.generic_shape(t, 512, cuda_device, path=path)
+            assert s["threads_a_cta"] == 512 and s["tables_in_shared_memory"]
+            assert s["lanes_a_cta"] <= lanes_cap
+            if n_col == 2:
+                assert s["lanes_a_cta"] == 4 and s["lanes_a_cta"] * s["ctas_per_sm"] * sms >= 512
+        for lanes in (1, 512):
+            v, o, ln = (x[..., :lanes].contiguous() for x in (v0, obs, lengths))
+            got = fused.scores_masked(t, em, v, o, ln)
+            out, src = fused.path(t, em, v, o, ln)
+            want = fused.scores_masked_plain(t, em.T.contiguous(), v, o, ln)
+            p_out, p_src = fused.path_plain(t, em.T.contiguous(), v, o, ln)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(out, p_out) and torch.equal(src, p_src)
+
+
 @pytest.mark.cuda
 def test_probe_wrappers_check_inputs(cuda_device):
     from spec_viterbi_tpu_torch.ops import probes
@@ -850,7 +1034,7 @@ def test_probe_wrappers_check_inputs(cuda_device):
 @pytest.mark.cuda
 def test_scores_occupancy_on_card(cuda_device):
     """The card reports registers and resident CTAs of the scores and path
-    kernels, both arms each; at least one CTA of 256 threads fits an SM."""
+    kernels, both arms each; at least one CTA fits an SM."""
     from spec_viterbi_tpu_torch.ops import probes
 
     for kernel in probes.OCCUPANCY_KERNELS:

@@ -20,6 +20,7 @@ from test_torch_host import ref_from_port
 from test_torch_kernels import (
     COLLISION_ROWS,
     _collision_model,
+    _generic_models,
     _negative_zero_carry,
     _negative_zero_model,
     _structured_model,
@@ -177,6 +178,37 @@ def test_fused_path_batch_matches_oracle_and_pallas(case):
     for i, (ref_sc, ref_pa) in zip(some, pallas):
         np.testing.assert_array_equal(got[i][1], ref_pa)
         assert almost_equal_vec(got[i][0], ref_sc)
+
+
+GENERIC_MODELS = {name: ref_from_port(hmm) for name, hmm in _generic_models().items()}
+
+
+@pytest.mark.parametrize("batch", ["uniform", "ragged"])
+@pytest.mark.parametrize("name", sorted(GENERIC_MODELS))
+def test_generic_path_arm_matches_jax(name, batch):
+    """The models the card tests hold the generic arms on (banded (1, 3),
+    tie-heavy banded (-1, 1), a model at the caps): the port's generic path
+    arm (on the CPU, path_plain and backtrace_plain through
+    decode_path_batch) against the oracle and the JAX XLA structured path
+    bit for bit, and the JAX Pallas path kernel in interpret mode (paths
+    equal, scores within ±1.0)."""
+    model = GENERIC_MODELS[name]
+    ref, fd = _pair(model)
+    assert not fd._fs_ok and fd._path_arm is fd._masked
+    rng = np.random.default_rng(len(name) * 3 + len(batch))
+    live = model.emit_num - (name == "tie_banded")
+    lengths = [24] * 5 if batch == "uniform" else [1, 2, 24, 9, 17]
+    seqs = _seqs(rng, lengths, live)
+    seqs[-1][-1] = model.emit_num - 1
+    got = fd.decode_path_batch(seqs)
+    _assert_oracle(model, seqs, got)
+    xla = RefDecoder(model, mode="structured", use_pallas=False)
+    for (sc, pa), (ref_sc, ref_pa), s in zip(got, ref.decode_path_batch(seqs), seqs):
+        want_sc, want_pa = xla.decode_path(s)
+        np.testing.assert_array_equal(sc, want_sc)
+        np.testing.assert_array_equal(pa, want_pa)
+        np.testing.assert_array_equal(pa, ref_pa)
+        assert almost_equal_vec(sc, ref_sc)
 
 
 @pytest.mark.parametrize("case", ["uniform", "ragged", "bucketed"])
