@@ -65,6 +65,7 @@ from spec_viterbi_tpu_torch.ops.structured import (
     take_pair,
 )
 from spec_viterbi_tpu_torch.utils.batching import bucket_plan, quantize_t
+from spec_viterbi_tpu_torch.utils.profiling import span
 
 # lane block of the bucket plans: kept at the JAX package's value so a
 # ragged batch is cut into the same buckets (and runs the same kernels)
@@ -89,9 +90,16 @@ launches = {
 }
 
 
+# Lane-steps of the staged batches, counted by stage_batch from the host's
+# lengths: every step a launch runs for every lane (``launched``) and the
+# steps of real symbols (``real``); their difference is padding.
+lane_steps = {"launched": 0, "real": 0}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, lane_steps):
+        for k in counts:
+            counts[k] = 0
 
 
 # The share of a device's memory that one path call's backpointer tensor
@@ -811,6 +819,8 @@ def stage_batch(seqs: list[np.ndarray], emit_num: int, device: torch.device,
     b = len(seqs)
     t_total = max(t_min, max(len(s) for s in seqs))
     lengths = np.array([len(s) for s in seqs], dtype=np.int32)
+    lane_steps["launched"] += b * (t_total - 1)
+    lane_steps["real"] += int(lengths.sum()) - b
     off = np.zeros(b, dtype=np.int64)
     np.cumsum(lengths[: b - 1], out=off[1:])
     last = off + lengths - 1
@@ -1207,26 +1217,32 @@ class FusedStructuredDecoder(_StreamAPI):
         """
         if not seqs:
             return []
-        plan = (
-            bucket_plan([len(s) for s in seqs], lane_block=BB)
-            if bucketed
-            else None
-        )
+        plan = None
+        if bucketed:
+            with span("svt.stage"):
+                plan = bucket_plan([len(s) for s in seqs], lane_block=BB)
         if plan is None:
-            seqs_t, lengths, masked = self.prepare(seqs)
-            v = self._run(seqs_t, lengths, masked=masked, b_real=len(seqs)).cpu().numpy()
-            return [v[i] for i in range(len(seqs))]
+            with span("svt.stage"):
+                seqs_t, lengths, masked = self.prepare(seqs)
+            with span("svt.launch"):
+                out = self._run(seqs_t, lengths, masked=masked, b_real=len(seqs))
+            with span("svt.fetch"):
+                v = out.cpu().numpy()
+                return [v[i] for i in range(len(seqs))]
         outs = []
         for idx, t_q in plan:
-            st, ln, masked = self.prepare([seqs[i] for i in idx], t_pad=t_q)
-            outs.append(self._run(st, ln, masked=masked, b_real=len(idx)))
-        v = torch.cat(outs, dim=0).cpu().numpy()
-        result: list[np.ndarray | None] = [None] * len(seqs)
-        row = 0
-        for idx, _ in plan:
-            for i in idx:
-                result[i] = v[row]
-                row += 1
+            with span("svt.stage"):
+                st, ln, masked = self.prepare([seqs[i] for i in idx], t_pad=t_q)
+            with span("svt.launch"):
+                outs.append(self._run(st, ln, masked=masked, b_real=len(idx)))
+        with span("svt.fetch"):
+            v = torch.cat(outs, dim=0).cpu().numpy()
+            result: list[np.ndarray | None] = [None] * len(seqs)
+            row = 0
+            for idx, _ in plan:
+                for i in idx:
+                    result[i] = v[row]
+                    row += 1
         return result
 
     # ---- exact paths -----------------------------------------------------
@@ -1283,24 +1299,31 @@ class FusedStructuredDecoder(_StreamAPI):
         """
         if not seqs:
             return []
-        if bucketed:
-            lens = [len(s) for s in seqs]
-            plan = bucket_plan(lens, lane_block=BB) or [(list(range(len(seqs))), max(lens))]
-            calls = []
-            for idx, t_q in plan:
-                if not self.path_supported(t_q):
-                    # the quantization overshoot (≤1.5×) may cross the budget
-                    # even when the real lengths fit: run at the real length
-                    t_q = max(lens[i] for i in idx)
-                    if not self.path_supported(t_q):
-                        raise ValueError(
-                            f"path decode of length {t_q} exceeds the "
-                            f"backpointer budget even at {BB} lanes; use "
-                            f"the per-sequence path decode"
-                        )
-                step = max(BB, self._path_lane_budget(t_q))
-                calls += [(idx[i : i + step], t_q) for i in range(0, len(idx), step)]
-        else:
+        with span("svt.stage"):
+            calls = self._path_calls(seqs, bucketed)
+        # a blocking upload waits for the stream, so stage every call first
+        staged = []
+        for idx, t_q in calls:
+            with span("svt.stage"):
+                staged.append(self.prepare([seqs[i] for i in idx], t_pad=t_q))
+        outs = []
+        for (idx, _), (st, ln, masked) in zip(calls, staged):
+            with span("svt.launch"):
+                outs.append(self._run_path(st, ln, masked=masked, b_real=len(idx)))
+        with span("svt.fetch"):
+            result: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(seqs)
+            for (idx, _), (scores, paths) in zip(calls, outs):
+                scores = scores.cpu().numpy()
+                paths = paths.cpu().numpy()
+                for row, i in enumerate(idx):
+                    result[i] = (scores[row], paths[row, : len(seqs[i])].astype(np.int32))
+        return result
+
+    def _path_calls(self, seqs: list[np.ndarray], bucketed: bool) -> list[tuple[list[int], int]]:
+        """The path decode's calls, ``[(lanes, t_pad)]``: the buckets cut
+        into lane chunks whose pointers fit the budget, or the whole batch;
+        raises where a call cannot fit."""
+        if not bucketed:
             t_max = max(len(s) for s in seqs)
             if not self.path_supported(t_max, batch=len(seqs)):
                 # refuse before any launch: the one whole-batch pointer
@@ -1309,20 +1332,24 @@ class FusedStructuredDecoder(_StreamAPI):
                     f"whole-batch path decode ({len(seqs)} lanes × {t_max} "
                     f"steps) exceeds the backpointer budget; use bucketed=True"
                 )
-            calls = [(list(range(len(seqs))), t_max)]
-        # a blocking upload waits for the stream, so stage every call first
-        staged = [self.prepare([seqs[i] for i in idx], t_pad=t_q) for idx, t_q in calls]
-        outs = [
-            self._run_path(st, ln, masked=masked, b_real=len(idx))
-            for (idx, _), (st, ln, masked) in zip(calls, staged)
-        ]
-        result: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(seqs)
-        for (idx, _), (scores, paths) in zip(calls, outs):
-            scores = scores.cpu().numpy()
-            paths = paths.cpu().numpy()
-            for row, i in enumerate(idx):
-                result[i] = (scores[row], paths[row, : len(seqs[i])].astype(np.int32))
-        return result
+            return [(list(range(len(seqs))), t_max)]
+        lens = [len(s) for s in seqs]
+        plan = bucket_plan(lens, lane_block=BB) or [(list(range(len(seqs))), max(lens))]
+        calls = []
+        for idx, t_q in plan:
+            if not self.path_supported(t_q):
+                # the quantization overshoot (≤1.5×) may cross the budget
+                # even when the real lengths fit: run at the real length
+                t_q = max(lens[i] for i in idx)
+                if not self.path_supported(t_q):
+                    raise ValueError(
+                        f"path decode of length {t_q} exceeds the "
+                        f"backpointer budget even at {BB} lanes; use "
+                        f"the per-sequence path decode"
+                    )
+            step = max(BB, self._path_lane_budget(t_q))
+            calls += [(idx[i : i + step], t_q) for i in range(0, len(idx), step)]
+        return calls
 
     # ---- the stream engine hooks (see _StreamAPI) ------------------------
 

@@ -53,6 +53,7 @@ from spec_viterbi_tpu_torch.hmm import HMM
 from spec_viterbi_tpu_torch.models.decoder import ViterbiDecoder, resolve_device
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.parallel.mesh import DATA_AXIS, STATE_AXIS, Grid
+from spec_viterbi_tpu_torch.utils.profiling import span
 
 # The decision thresholds, the JAX package's values.
 TP_LATENCY_STATES = 10_000  # below this, a shard's step is not faster
@@ -296,28 +297,30 @@ def execute_route(
     if route.kind == "time_parallel":
         from spec_viterbi_tpu_torch.ops.time_parallel import TimeParallelDecoder
 
-        sop, em, pi = _model(hmm)
-        tp = TimeParallelDecoder(
-            sop, em, pi, k=route.params.get("k", TIME_PARALLEL_K_DEFAULT), device=device
-        )
+        with span("svt.build"):
+            sop, em, pi = _model(hmm)
+            tp = TimeParallelDecoder(
+                sop, em, pi, k=route.params.get("k", TIME_PARALLEL_K_DEFAULT), device=device
+            )
+            # the blocks' pointers from the fused path kernel when the
+            # operator takes it; else the plain argmin scan
+            engine = (
+                fused.FusedStructuredDecoder(sop, em, pi, device=device)
+                if paths and fused.fused_eligible(sop) else None
+            )
         if not paths:
             return [tp.decode(s) for s in seqs]
-        # the blocks' pointers from the fused path kernel when the
-        # operator takes it; else the plain argmin scan
-        engine = (
-            fused.FusedStructuredDecoder(sop, em, pi, device=device)
-            if fused.fused_eligible(sop) else None
-        )
         return [tp.decode_path(s, engine=engine) for s in seqs]
 
     if route.kind == "tp_chunked":
         from spec_viterbi_tpu_torch.parallel.fused_tp import FusedTPDecoder
 
-        sop, em, pi = _model(hmm)
-        tp = FusedTPDecoder(
-            sop, em, pi, _axis_group(grid, STATE_AXIS),
-            chunk=route.params.get("chunk", TP_CHUNK_DEFAULT),
-        )
+        with span("svt.build"):
+            sop, em, pi = _model(hmm)
+            tp = FusedTPDecoder(
+                sop, em, pi, _axis_group(grid, STATE_AXIS),
+                chunk=route.params.get("chunk", TP_CHUNK_DEFAULT),
+            )
         return tp.decode_path_batch(seqs) if paths else tp.decode_batch(seqs)
 
     if route.kind == "tp_halo":
@@ -336,7 +339,8 @@ def execute_route(
                     "halo TP (no state-sharded backpointers for coupled "
                     "operators); decode scores, or stream per time chunk"
                 )
-            dec = ViterbiDecoder(hmm, use_kernels=False, device=device)
+            with span("svt.build"):
+                dec = ViterbiDecoder(hmm, use_kernels=False, device=device)
             return [dec.decode_path(s) for s in seqs]
         return decode_batch_structured_tp(hmm, seqs, _axis_group(grid, STATE_AXIS))
 
@@ -347,9 +351,11 @@ def execute_route(
         )
 
         group = _axis_group(grid, DATA_AXIS)
-        sop, em, pi = _model(hmm)
-        if fused.fused_eligible(sop):
-            fd = fused.FusedStructuredDecoder(sop, em, pi, device=group.device)
+        with span("svt.build"):
+            sop, em, pi = _model(hmm)
+            fd = (fused.FusedStructuredDecoder(sop, em, pi, device=group.device)
+                  if fused.fused_eligible(sop) else None)
+        if fd is not None:
             if paths:
                 return decode_path_batch_dp_fused(fd, seqs, group)
             return decode_batch_dp_fused(fd, seqs, group)
@@ -357,7 +363,8 @@ def execute_route(
         # plain argmin scan a sequence for paths and the structured DP
         # (plain tensor ops) for scores
         if paths:
-            dec = ViterbiDecoder(hmm, use_kernels=False, device=group.device)
+            with span("svt.build"):
+                dec = ViterbiDecoder(hmm, use_kernels=False, device=group.device)
             return [dec.decode_path(s) for s in seqs]
         from spec_viterbi_tpu_torch.parallel.structured_tp import decode_batch_structured_dp
 
@@ -367,7 +374,8 @@ def execute_route(
         raise ValueError(f"unknown route kind {route.kind!r}")
     # the single-device decoder owns the fused/structured/dense sub-choice
     # (and its own bucketing and backpointer budget)
-    dec = ViterbiDecoder(hmm, device=device)
+    with span("svt.build"):
+        dec = ViterbiDecoder(hmm, device=device)
     return dec.decode_path_batch(seqs) if paths else dec.decode_batch(seqs)
 
 
@@ -397,12 +405,14 @@ def decode_auto(
     Extra keyword arguments go to :meth:`Workload.from_seqs`, so every
     planner knob (``prefer_time_parallel``, ``hbm_bytes``, ...) is
     reachable from here. ``verbose`` prints the route and its reason to
-    stderr."""
+    stderr. A ``torch.profiler`` trace holds the call's stages as spans
+    (``utils/profiling.py::span``): ``svt.plan``, then ``svt.build``."""
     if not seqs:
         return []
-    workload = Workload.from_seqs(seqs, paths=paths, optimize=optimize, **workload_kw)
-    route = plan_route(hmm, workload, grid, device=device)
-    route = Route(route.kind, route.reason, {**route.params, "paths": paths})
+    with span("svt.plan"):
+        workload = Workload.from_seqs(seqs, paths=paths, optimize=optimize, **workload_kw)
+        route = plan_route(hmm, workload, grid, device=device)
+        route = Route(route.kind, route.reason, {**route.params, "paths": paths})
     if verbose:
         print(f"[scheduler] {route.kind}: {route.reason}", file=sys.stderr)
     return execute_route(hmm, seqs, route, grid, device=device)

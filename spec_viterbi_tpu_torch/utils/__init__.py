@@ -2,6 +2,6 @@
 cache, profiling helpers and large host slabs."""
 
 from spec_viterbi_tpu_torch.utils.cache import OperatorCache
-from spec_viterbi_tpu_torch.utils.profiling import StepTimer, trace
+from spec_viterbi_tpu_torch.utils.profiling import StepTimer, span, trace
 
-__all__ = ["OperatorCache", "trace", "StepTimer"]
+__all__ = ["OperatorCache", "trace", "StepTimer", "span"]

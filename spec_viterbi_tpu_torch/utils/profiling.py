@@ -4,7 +4,12 @@
   card's kernels when a CUDA device is present) written as a Chrome trace
   under a directory, in place of the JAX package's ``jax.profiler`` trace;
 - :class:`StepTimer`: wall-clock step accounting with median and
-  percentile summaries, copied as it is.
+  percentile summaries, copied as it is;
+- :func:`span`: a named host range around one stage of a call, which a
+  ``torch.profiler`` trace records on its own clock, beside the card's
+  kernels and copies. ``FusedStructuredDecoder`` and the scheduler open
+  ``svt.plan``, ``svt.build``, ``svt.stage``, ``svt.launch`` and
+  ``svt.fetch``.
 """
 
 from __future__ import annotations
@@ -14,6 +19,19 @@ import os
 import time
 
 import numpy as np
+import torch
+
+# A plain host op (``cpu_op``), not ``record_function``: the profiler mirrors
+# that range onto the device's timeline, where a trace reader takes it for
+# device work.
+_RECORD = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a host range while a
+    ``torch.profiler`` runs, and nothing otherwise. ``name`` is a fixed
+    string: a trace groups its ranges by name."""
+    return _RECORD(name)
 
 
 @contextlib.contextmanager
@@ -21,8 +39,6 @@ def trace(log_dir: str):
     """Profile a region: ``with trace("traces"): decode(...)`` writes
     ``log_dir/trace_<pid>_<ns>.json`` (open it in Perfetto or
     ``chrome://tracing``). Yields the ``torch.profiler.profile``."""
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
