@@ -839,6 +839,17 @@ def stage_batch(seqs: list[np.ndarray], emit_num: int, device: torch.device,
     return seqs_t, torch.as_tensor(lengths, device=device), masked
 
 
+def fetch_paths(paths: torch.Tensor, lengths: list[int]) -> list[np.ndarray]:
+    """Per-lane int32 paths from a device path tensor ``[B, T]``: widened
+    and made lane-major on its device (nothing to do for a contiguous int32
+    one), one copy to the host, and lane ``i`` the row view
+    ``[i, :lengths[i]]``. Read lane by lane on the host, a state-major
+    buffer costs a cache miss a symbol; on the card the device's copy and
+    the wider D2H cost less than one host pass that widens int16."""
+    w = paths.to(torch.int32, memory_format=torch.contiguous_format).cpu().numpy()
+    return [w[i, :n] for i, n in enumerate(lengths)]
+
+
 class StreamState(NamedTuple):
     """Resumable streaming-decode state: the device carry and the lane count."""
 
@@ -1258,16 +1269,16 @@ class FusedStructuredDecoder(_StreamAPI):
         return out, torch.cat([rev, last[None]], dim=0)
 
     def _run_path(self, seqs_t, lengths, masked: bool = True, b_real: int | None = None):
-        """(scores [B, n], paths [B, T] int16) on the device; ``b_real``
-        slices to [b_real, states_num] and [b_real, T]. The path is int16
-        (``path_supported`` guarantees the states fit) and is widened on
-        the host."""
+        """(scores [B, n], paths [B, T] int32) on the device; ``b_real``
+        slices to [b_real, states_num] and [b_real, T]. The path is
+        lane-major and contiguous, one transposing copy, so the host takes
+        each lane as a row view (`fetch_paths`)."""
         scores, paths = self._path_core(seqs_t, lengths, masked)
         scores, paths = scores.T, paths.T
         if b_real is not None:
             scores = scores[:b_real, : self.states_num]
             paths = paths[:b_real]
-        return scores, paths.to(torch.int16)
+        return scores, paths.contiguous()
 
     def path_supported(self, t_max: int, batch: int = BB) -> bool:
         """Whether ONE fused path call of this shape fits the budget.
@@ -1314,9 +1325,9 @@ class FusedStructuredDecoder(_StreamAPI):
             result: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(seqs)
             for (idx, _), (scores, paths) in zip(calls, outs):
                 scores = scores.cpu().numpy()
-                paths = paths.cpu().numpy()
+                lanes = fetch_paths(paths, [len(seqs[i]) for i in idx])
                 for row, i in enumerate(idx):
-                    result[i] = (scores[row], paths[row, : len(seqs[i])].astype(np.int32))
+                    result[i] = (scores[row], lanes[row])
         return result
 
     def _path_calls(self, seqs: list[np.ndarray], bucketed: bool) -> list[tuple[list[int], int]]:

@@ -613,5 +613,5 @@ class FusedTPDecoder:
         seqs_t, lengths = self._stage(seqs)
         scores, paths = self._path_core(seqs_t, lengths)
         scores = scores.T[:, : self.states_num].cpu().numpy()
-        paths = paths.cpu().numpy()
-        return [(scores[i], paths[: len(s), i].astype(np.int32)) for i, s in enumerate(seqs)]
+        paths = fused.fetch_paths(paths.T, [len(s) for s in seqs])
+        return list(zip(scores, paths))

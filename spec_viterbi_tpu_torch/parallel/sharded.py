@@ -53,7 +53,7 @@ from spec_viterbi_tpu_torch.models.decoder import (
     resolve_device,
 )
 from spec_viterbi_tpu_torch.ops import dispatch, tropical
-from spec_viterbi_tpu_torch.ops.fused import BB, PathStreamState, StreamState
+from spec_viterbi_tpu_torch.ops.fused import BB, PathStreamState, StreamState, fetch_paths
 from spec_viterbi_tpu_torch.parallel.mesh import DATA_AXIS, STATE_AXIS, TIME_AXIS
 from spec_viterbi_tpu_torch.utils.batching import pad_batch
 
@@ -196,8 +196,8 @@ def decode_path_batch_dp_fused(
     _, path_fn = make_fused_dp(fd, group)
     scores, paths = path_fn(*_fused_dp_stage(fd, seqs, group))
     scores = scores.T[: len(seqs), : fd.states_num].cpu().numpy()
-    paths = paths.T.cpu().numpy()
-    return [(scores[i], paths[i, : len(s)].astype(np.int32)) for i, s in enumerate(seqs)]
+    paths = fetch_paths(paths.T[: len(seqs)], [len(s) for s in seqs])
+    return list(zip(scores, paths))
 
 
 class StreamDP:

@@ -545,6 +545,34 @@ def test_decoder_path_flow_goes_through_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[30] * 200, [3, 30, 17, 1] * 40])
+def test_run_path_is_lane_major_on_card(cuda_device, lengths):
+    """_run_path hands back a C-contiguous [b_real, T] int32 path tensor
+    whose rows equal those of the transposed [T, B] int16 layout it
+    replaced, and fetch_paths gives each lane its row, the oracle's path."""
+    hmm = generate_profile_hmm(126, seed=2)
+    fd = _decoder(hmm, cuda_device)
+    seqs = _seqs(np.random.default_rng(7), lengths, 20)
+    st, ln, masked = fd.prepare(seqs)
+    b = len(seqs)
+    scores, paths = fd._run_path(st, ln, masked=masked, b_real=b)
+    _, core = fd._path_core(st, ln, masked)
+    old = core.T[:b].to(torch.int16)
+    assert old.stride() == (1, core.shape[1])
+    assert paths.dtype == torch.int32 and paths.is_contiguous()
+    assert paths.shape == (b, st.shape[0]) and paths.stride() == (st.shape[0], 1)
+    assert torch.equal(paths, old.to(torch.int32))
+    old_np = old.cpu().numpy()
+    for i, (pa, s) in enumerate(zip(fused.fetch_paths(paths, lengths), seqs)):
+        assert pa.dtype == np.int32 and pa.flags.c_contiguous and pa.shape == (len(s),)
+        np.testing.assert_array_equal(pa, old_np[i, : len(s)].astype(np.int32))
+        if i % 37 == 0:
+            want_sc, want_pa = viterbi_path_oracle(hmm, s)
+            np.testing.assert_array_equal(pa, want_pa)
+            np.testing.assert_array_equal(scores[i].cpu().numpy(), want_sc)
+
+
+@pytest.mark.cuda
 def test_path_wrappers_check_inputs(cuda_device):
     fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
     st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 5], 20))

@@ -81,7 +81,7 @@ def _assert_oracle(model, seqs, got):
         want_sc, want_pa = viterbi_path_oracle(model, s)
         np.testing.assert_array_equal(sc, want_sc)
         np.testing.assert_array_equal(pa, want_pa)
-        assert pa.dtype == np.int32
+        assert pa.dtype == np.int32 and pa.shape == (len(s),) and pa.flags.c_contiguous
 
 
 def _carry(rng, n, b):
@@ -301,6 +301,36 @@ def test_path_budget_quantization_fallback():
     got = fd.decode_path_batch(seqs)
     _assert_oracle(model, [seqs[i] for i in (0, 150, 249, 255, 269)],
                    [got[i] for i in (0, 150, 249, 255, 269)])
+
+
+@pytest.mark.parametrize("case", ["uniform", "ragged", "chunked"])
+def test_path_fetch_is_lane_major(case, monkeypatch):
+    """decode_path_batch's fetch on a uniform batch, a ragged one of several
+    buckets and one cut into lane chunks by the pointer budget: every
+    _run_path call hands back a C-contiguous [lanes, T] int32 tensor, and
+    every path is a 1-D C-contiguous int32 array of its sequence's length,
+    the oracle's, with the oracle's scores bit for bit."""
+    model = MODELS["profile"]
+    _, fd = _pair(model)
+    rng = np.random.default_rng(11)
+    lens = {
+        "uniform": [40] * 130,
+        "ragged": list(rng.integers(2, 12, 200)) + list(rng.integers(100, 127, 60)),
+        "chunked": [40] * 256,
+    }[case]
+    seqs = _seqs(rng, lens, model.emit_num)
+    if case == "chunked":
+        fd.MAX_PATH_BYTES = (40 - 1) * fd.n * 128 * 2
+    calls = fd._path_calls(seqs, bucketed=True)
+    assert len(calls) == {"uniform": 1, "ragged": 2, "chunked": 2}[case]
+    outs = []
+    run_path = fd._run_path
+    monkeypatch.setattr(fd, "_run_path", lambda *a, **k: outs.append(run_path(*a, **k)) or outs[-1])
+    got = fd.decode_path_batch(seqs)
+    for (idx, t_q), (_, paths) in zip(calls, outs, strict=True):
+        assert paths.dtype == torch.int32 and paths.is_contiguous()
+        assert paths.shape == (len(idx), max(t_q, max(lens[i] for i in idx)))
+    _assert_oracle(model, seqs, got)
 
 
 def test_decoder_path_batch_delegates_and_chunks(monkeypatch):
