@@ -7,7 +7,8 @@ repository, in tests and in the smoke run. ``generate_tie_heavy_hmm`` and
 ``generate_tie_heavy_banded_hmm`` are new too: models whose costs are
 small integers, to hold the path tie rule. ``generate_banded_hmm`` draws
 what ``tests/test_fused_tp.py::banded_hmm`` draws, for the state-sharded
-decode. All are test data, not decoder features.
+decode. ``generate_plan7_profile`` draws a full Plan7 profile (match,
+insert and delete states), which ``generate_plan7_hmm`` folds. All are test data, not decoder features.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from spec_viterbi_tpu_torch.hmm import HMM, MOD_PROB_DTYPE, to_modified_prob_np
+from spec_viterbi_tpu_torch.io.hmmer import Plan7Profile, plan7_to_hmm
 
 
 def generate_random_hmm(
@@ -143,6 +145,55 @@ def generate_profile_hmm(
     )
     hmm.validate()
     return hmm
+
+
+def generate_plan7_profile(length: int, emit_num: int = 20, seed: int = 0) -> Plan7Profile:
+    """Seeded local-mode Plan7 profile of ``length`` nodes.
+
+    Test and benchmark data standing in for a Pfam family's model, not a
+    decoder feature. Per node, MM/MI/MD are a Dirichlet(90, 5, 5) draw and
+    IM/II and DM/DD Dirichlet(7, 3) draws; the special states are those of
+    :func:`generate_profile_hmm` (N loops with ``1 − 3/(L+3)`` and enters
+    every match state with ``2/(L(L+1))``, every match state exits to N and
+    to C with 0.5 but one seeded exit to C, C loops like N); every emission
+    row (match, insert, N, C) is a Dirichlet(1) draw over ``emit_num``
+    symbols.
+    """
+    if length < 2:
+        raise ValueError("a Plan7 profile needs at least 2 nodes")
+    rng = np.random.default_rng(seed)
+    big_l = length
+    trans = np.concatenate([
+        rng.dirichlet([90.0, 5.0, 5.0], size=big_l - 1),  # MM MI MD
+        rng.dirichlet([7.0, 3.0], size=big_l - 1),        # IM II
+        rng.dirichlet([7.0, 3.0], size=big_l - 1),        # DM DD
+    ], axis=1)
+    exit_c = np.full(big_l, 0.5)
+    exit_c[rng.integers(0, big_l)] = rng.uniform(0.05, 0.45)
+    match = rng.dirichlet(np.ones(emit_num), size=big_l)
+    insert = rng.dirichlet(np.ones(emit_num), size=big_l - 1)
+    n_em, c_em = rng.dirichlet(np.ones(emit_num), size=2)
+    loop = 1.0 - 3.0 / (big_l + 3)
+    return Plan7Profile(
+        match_emissions=match,
+        insert_emissions=insert,
+        trans=trans,
+        entry=np.full(big_l, 2.0 / (big_l * (big_l + 1))),
+        exit_n=np.full(big_l, 0.5),
+        exit_c=exit_c,
+        n_loop=loop,
+        c_loop=loop,
+        n_emissions=n_em,
+        c_emissions=c_em,
+    )
+
+
+def generate_plan7_hmm(length: int, emit_num: int = 20, seed: int = 0) -> HMM:
+    """:func:`generate_plan7_profile` folded by
+    :func:`~spec_viterbi_tpu_torch.io.hmmer.plan7_to_hmm`: ``2L + 1``
+    states and ``(L-2)(L-1)/2 + 7L - 2`` transitions (1,001 and 127,749 at
+    ``L = 500``)."""
+    return plan7_to_hmm(generate_plan7_profile(length, emit_num, seed))
 
 
 def generate_tie_heavy_hmm(states: int = 300, emit_num: int = 5, seed: int = 0) -> HMM:

@@ -29,6 +29,7 @@ match the committed corpus bit-for-bit after parsing.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
@@ -162,3 +163,190 @@ def hmmer_to_chmm(path: str | os.PathLike, out_path: str | os.PathLike) -> None:
     from spec_viterbi_tpu_torch.io.chmm import write_chmm
 
     write_chmm(hmmer_to_hmm(path), out_path)
+
+
+# ---- the full Plan7 profile ------------------------------------------------
+
+# The seven transitions of a Plan7 node, in the order of a HMMER3 file's
+# transition lines (``p7_hmm.h``: p7H_MM ... p7H_DD).
+PLAN7_TRANSITIONS = ("mm", "mi", "md", "im", "ii", "dm", "dd")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan7Profile:
+    """A Plan7 profile of ``L`` nodes in probability space, with the
+    special states configured for local alignment.
+
+    - ``match_emissions`` [L, K] and ``insert_emissions`` [L-1, K]: node
+      ``k``'s row at index ``k - 1`` (node ``L`` has no insert state);
+    - ``trans`` [L-1, 7]: node ``k``'s transitions out of Mk, Ik and Dk, in
+      :data:`PLAN7_TRANSITIONS` order (node ``L``'s lead only to E);
+    - ``entry`` [L]: N → Mk; ``exit_n``/``exit_c`` [L]: Mk → N and Mk → C,
+      the E state folded away (J merged into N, as the MSV model has it);
+    - ``n_loop``/``c_loop``: the N and C self-loops; ``n_emissions`` and
+      ``c_emissions`` [K]: what N and C emit.
+    """
+
+    match_emissions: np.ndarray
+    insert_emissions: np.ndarray
+    trans: np.ndarray
+    entry: np.ndarray
+    exit_n: np.ndarray
+    exit_c: np.ndarray
+    n_loop: float
+    c_loop: float
+    n_emissions: np.ndarray
+    c_emissions: np.ndarray
+
+    @property
+    def length(self) -> int:
+        return int(self.match_emissions.shape[0])
+
+
+def _neg_ln_probs(tokens: list[str]) -> list[float]:
+    """``e^(−x)`` of HMMER's neg-ln tokens; ``*`` is probability 0."""
+    return [0.0 if t == "*" else math.exp(-float(t)) for t in tokens]
+
+
+def read_hmmer_plan7(path: str | os.PathLike) -> Plan7Profile:
+    """Parse every node of a HMMER3 protein profile: match and insert
+    emissions and the seven transitions.
+
+    The special states take the MSV converter's local-mode values
+    (:func:`hmmer_to_hmm`): N loops with ``1 − 3/(L+3)`` and enters each
+    match state with ``3/(L+3) · 2/(L(L+1))``, every match state exits to
+    N and to C with 0.5 each, C loops like N, and N and C emit the
+    background frequencies. Node 0 (B → M1, B → I0, B → D1) is not read:
+    local entries go straight to the match states.
+    """
+    with open(os.fspath(path)) as f:
+        lines = [line.split() for line in f]
+    length = next((int(t[1]) for t in lines if t and t[0] == "LENG"), 0)
+    if length < 2:
+        raise ValueError(f"{path}: missing LENG, or fewer than 2 nodes")
+    try:
+        at = next(i for i, t in enumerate(lines) if t and t[0] == "HMM")
+    except StopIteration:
+        raise ValueError(f"{path}: no HMM line (not a HMMER3 profile?)") from None
+    alphabet = len(lines[at]) - 1
+    if alphabet != NUM_AMINO_ACIDS:
+        raise ValueError(f"{path}: {alphabet} symbols; only amino profiles are read")
+    at += 2  # past the transition names
+    if at < len(lines) and lines[at] and lines[at][0] == "COMPO":
+        at += 1
+    at += 2  # node 0: insert emissions, B transitions
+    match, insert, trans = [], [], []
+    while at + 2 < len(lines) and lines[at] != ["//"]:
+        node, ins, tr = lines[at], lines[at + 1], lines[at + 2]
+        if int(node[0]) != len(match) + 1:
+            raise ValueError(f"{path}: node {node[0]} out of order")
+        match.append(_neg_ln_probs(node[1 : alphabet + 1]))
+        insert.append(_neg_ln_probs(ins[:alphabet]))
+        trans.append(_neg_ln_probs(tr[:7]))
+        at += 3
+    if len(match) != length:
+        raise ValueError(f"{path}: LENG {length} but parsed {len(match)} nodes")
+    move = 3.0 / (length + 3)
+    background = np.asarray(BACKGROUND_FREQUENCIES, dtype=np.float64)
+    return Plan7Profile(
+        match_emissions=np.asarray(match),
+        insert_emissions=np.asarray(insert[:-1]),
+        trans=np.asarray(trans[:-1]),
+        entry=np.full(length, move * 2.0 / (length * (length + 1))),
+        exit_n=np.full(length, 0.5),
+        exit_c=np.full(length, 0.5),
+        n_loop=1.0 - move,
+        c_loop=1.0 - move,
+        n_emissions=background,
+        c_emissions=background.copy(),
+    )
+
+
+def _cost64(p) -> np.ndarray:
+    """``−log2(p)`` in float64, ``+inf`` where ``p`` is 0."""
+    p = np.asarray(p, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        return -np.log2(p)
+
+
+def plan7_to_hmm(profile: Plan7Profile) -> HMM:
+    """The emitting-state HMM of a local-mode Plan7 profile.
+
+    States ``[N, M1..ML, I1..I(L-1), C]`` (``2L + 1``); only N starts.
+    Transitions: the N loop and N → Mk; Mk → Mk+1, Mk → Ik, Ik → Mk+1,
+    Ik → Ik; Mk → N and Mk → C (the E state folded, as the MSV model
+    folds it); the C loop; and the delete states folded away: every chain
+    Mk → Dk+1 → … → Dj-1 → Mj (``j ≥ k + 2``) becomes one transition
+    Mk → Mj costing ``MD(k) + DD(k+1) + … + DD(j-2) + DM(j-1)``, summed in
+    float64 from the −log2 values, in that order, and rounded to float32
+    once. Every other cost is rounded once from its float64 −log2.
+
+    Local mode: there is no B → D entry and no D → E exit (HMMER3's wing
+    retraction routes them through match states), so D1 and DL carry no
+    path and every path through deletes starts and ends at match states.
+    A folded chain is the only way from Mk to Mj, so Viterbi over this
+    model scores every sequence as the Plan7 recurrence does. Transitions
+    of probability 0 are left out.
+    """
+    big_l = profile.length
+    if big_l < 2:
+        raise ValueError("a Plan7 profile needs at least 2 nodes")
+    states = 2 * big_l + 1
+    c_state = states - 1
+    match = np.arange(1, big_l + 1, dtype=np.int64)
+    node = match[:-1]  # nodes 1..L-1, the ones with an insert state
+    insert = big_l + node
+    cost = {name: _cost64(profile.trans[:, i]) for i, name in enumerate(PLAN7_TRANSITIONS)}
+
+    # the folded chains: pair (k, j) at a = k - 1, m = j - k - 2 (a + m ≤
+    # L - 3); chain[a, m] = MD(k) + DD(k+1) + … + DD(k+m), accumulated left
+    # to right, and the pair's cost chain[a, m] + DM(j-1)
+    width = big_l - 2
+    a, m = np.nonzero(np.add.outer(np.arange(width), np.arange(width)) < width)
+    chain = np.zeros((width, max(width, 1)))
+    chain[:, 0] = cost["md"][:width]
+    tail = m >= 1
+    chain[a[tail], m[tail]] = cost["dd"][a[tail] + m[tail]]
+    chain = np.cumsum(chain, axis=1)
+    fold_k = a + 1
+    fold_j = fold_k + m + 2
+    fold_cost = chain[a, m] + cost["dm"][fold_j - 2]
+
+    src = np.concatenate([
+        [0], np.zeros(big_l, np.int64),  # N loop, entries
+        node, node, insert, insert,      # MM, MI, IM, II
+        match, match,                    # Mk → N, Mk → C
+        [c_state],                       # C loop
+        fold_k,                          # the delete chains
+    ])
+    dst = np.concatenate([
+        [0], match,
+        node + 1, insert, node + 1, insert,
+        np.zeros(big_l, np.int64), np.full(big_l, c_state),
+        [c_state],
+        fold_j,
+    ])
+    cost64 = np.concatenate([
+        _cost64([profile.n_loop]), _cost64(profile.entry),
+        cost["mm"], cost["mi"], cost["im"], cost["ii"],
+        _cost64(profile.exit_n), _cost64(profile.exit_c),
+        _cost64([profile.c_loop]),
+        fold_cost,
+    ])
+    finite = np.isfinite(cost64)
+    emissions = np.concatenate([
+        profile.n_emissions[None], profile.match_emissions, profile.insert_emissions,
+        profile.c_emissions[None],
+    ])  # [states, K]
+    hmm = HMM(
+        states_num=states,
+        emit_num=emissions.shape[1],
+        trans_rows=src[finite],
+        trans_cols=dst[finite],
+        trans_probs=cost64[finite].astype(np.float32),
+        emissions=np.ascontiguousarray(to_modified_prob_np(emissions.T)),
+        start_probabilities_cols=np.array([0], dtype=np.int64),
+        start_probabilities=to_modified_prob_np(np.array([1.0])),
+    )
+    hmm.validate()
+    return hmm

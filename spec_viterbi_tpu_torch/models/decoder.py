@@ -35,6 +35,7 @@ from spec_viterbi_tpu_torch.ops.structured import (
     structured_scores_batch,
 )
 from spec_viterbi_tpu_torch.utils.batching import bucket_plan, pad_batch
+from spec_viterbi_tpu_torch.utils.profiling import span
 
 # lane multiple and bucket block of the plain paths, as in the JAX package
 SUBLANE = 8
@@ -62,7 +63,8 @@ class DeviceHMM:
     ``probes/minplus.py``). Padding states carry +inf everywhere,
     so they stay at the semiring zero through any number of steps and are
     sliced off on extraction. ``dense=False`` leaves both out (structured
-    mode reads only the emissions and π).
+    mode reads only the emissions and π). ``finite`` counts the finite
+    entries of the dense operator (0 without it).
     """
 
     a_t: torch.Tensor | None  # [n, n]
@@ -71,16 +73,19 @@ class DeviceHMM:
     emissions: torch.Tensor  # [E, n]
     states_num: int
     padded: int
+    finite: int = 0
 
     @classmethod
     def from_hmm(cls, hmm: HMM, dense: bool = True, *, device: torch.device | str) -> "DeviceHMM":
         device = resolve_device(device)
         n = pad_to_lane(hmm.states_num)
         a_t = a = None
+        finite = 0
         if dense:
             mat = hmm.transition_matrix(pad_to=n)
             a_t = torch.as_tensor(mat.T.copy(), device=device)
             a = torch.as_tensor(mat, device=device)
+            finite = int(np.count_nonzero(np.isfinite(mat)))
         return cls(
             a_t=a_t,
             a=a,
@@ -88,6 +93,7 @@ class DeviceHMM:
             emissions=torch.as_tensor(hmm.emission_matrix(pad_to=n), device=device),
             states_num=hmm.states_num,
             padded=n,
+            finite=finite,
         )
 
 
@@ -165,7 +171,12 @@ class ViterbiDecoder:
     (cost ratio < 1/8 of dense), else dense, as the JAX package does.
     ``use_kernels=False`` (the JAX package's ``use_pallas=False``) pins the
     plain structured loop. ``device`` is required: ``"cpu"`` or
-    ``"cuda[:i]"``.
+    ``"cuda[:i]"``. ``sop`` is the model's structured operator at its
+    lane-padded width, where the caller has it; else it is built here.
+
+    Dense mode's ``decode_batch`` opens the spans ``svt.stage``,
+    ``svt.launch`` and ``svt.fetch`` (``utils/profiling.py::span``), and
+    its staging counts ``tropical.dense_work``.
     """
 
     MODES = ("auto", "dense", "structured")
@@ -177,6 +188,7 @@ class ViterbiDecoder:
         mode: str = "auto",
         *,
         device: torch.device | str,
+        sop: StructuredOperator | None = None,
     ):
         if mode not in self.MODES:
             raise ValueError(f"mode must be one of {self.MODES}, got {mode!r}")
@@ -188,7 +200,11 @@ class ViterbiDecoder:
         padded = pad_to_lane(hmm.states_num)
         self._sop = self._sop_arrs = None
         if mode in ("auto", "structured"):
-            sop = StructuredOperator.from_hmm(hmm, pad_to=padded)
+            if sop is None:
+                sop = StructuredOperator.from_hmm(hmm, pad_to=padded)
+            elif (sop.n, sop.states_num) != (padded, hmm.states_num):
+                raise ValueError(f"the operator is {sop.states_num} states padded to {sop.n}; "
+                                 f"the model {hmm.states_num} padded to {padded}")
             if mode == "structured" or sop.cost_ratio() < 0.125:
                 self._sop, self._sop_arrs = sop, sop.to(self.device)
                 mode = "structured"
@@ -299,6 +315,11 @@ class ViterbiDecoder:
             return self._fused.prepare(seqs, t_pad=t_pad)
         seqs = [validate_obs_seq(s, self.hmm.emit_num) for s in seqs]
         batch, lengths = pad_batch(seqs, SUBLANE, t_pad=t_pad)
+        if self.mode == "dense":
+            lanes, t_total = batch.shape
+            tropical.dense_work["launched"] += self.dev.padded ** 2 * lanes * (t_total - 1)
+            live = int(np.maximum(lengths.astype(np.int64) - 1, 0).sum())
+            tropical.dense_work["real"] += self.dev.finite * live
         return (
             torch.as_tensor(batch.T.copy(), device=self.device),
             torch.as_tensor(lengths, device=self.device),
@@ -333,23 +354,37 @@ class ViterbiDecoder:
             return []
         if self._fused is not None:
             return self._fused.decode_batch(seqs, bucketed=bucketed)
-        plan = (
-            bucket_plan([len(s) for s in seqs], lane_block=SUBLANE)
-            if bucketed
-            else None
-        )
+        record = span if self.mode == "dense" else _unrecorded
+        plan = None
+        if bucketed:
+            with record("svt.stage"):
+                plan = bucket_plan([len(s) for s in seqs], lane_block=SUBLANE)
         if plan is None:
-            v = self.run_batch(self.prepare_batch(seqs)).cpu().numpy()
-            return [v[i, : self.states_num] for i in range(len(seqs))]
+            with record("svt.stage"):
+                handle = self.prepare_batch(seqs)
+            with record("svt.launch"):
+                out = self.run_batch(handle)
+            with record("svt.fetch"):
+                v = out.cpu().numpy()
+                return [v[i, : self.states_num] for i in range(len(seqs))]
         outs = []
         for idx, t_q in plan:
-            out = self.run_batch(self.prepare_batch([seqs[i] for i in idx], t_pad=t_q))
-            outs.append(out[: len(idx)])
-        v = torch.cat(outs, dim=0).cpu().numpy()
-        result: list[np.ndarray | None] = [None] * len(seqs)
-        row = 0
-        for idx, _ in plan:
-            for i in idx:
-                result[i] = v[row, : self.states_num]
-                row += 1
+            with record("svt.stage"):
+                handle = self.prepare_batch([seqs[i] for i in idx], t_pad=t_q)
+            with record("svt.launch"):
+                outs.append(self.run_batch(handle)[: len(idx)])
+        with record("svt.fetch"):
+            v = torch.cat(outs, dim=0).cpu().numpy()
+            result: list[np.ndarray | None] = [None] * len(seqs)
+            row = 0
+            for idx, _ in plan:
+                for i in idx:
+                    result[i] = v[row, : self.states_num]
+                    row += 1
         return result
+
+
+def _unrecorded(name: str):
+    """A stand-in for :func:`span` that records nothing: the plain
+    structured loop opens no stage spans."""
+    return contextlib.nullcontext()

@@ -43,10 +43,17 @@ PLAIN_BLOCK_ELEMS = 1 << 25
 # dense_step_mv) add one where they launch the kernel and nowhere else.
 launches = {"minplus": 0}
 
+# Operator entries of the dense decoder's steps, counted by
+# ``ViterbiDecoder.prepare_batch`` from the host's shapes and lengths: every
+# entry a step's launch reads for every lane (``launched``, n_pad² a lane)
+# and the finite ones for the lanes still live at that step (``real``).
+dense_work = {"launched": 0, "real": 0}
+
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, dense_work):
+        for k in counts:
+            counts[k] = 0
 
 
 def tropical_mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

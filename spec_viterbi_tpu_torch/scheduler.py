@@ -264,10 +264,11 @@ def plan_route(
 # ---------------------------------------------------------------------------
 
 
-def _model(hmm: HMM):
+def _model(hmm: HMM, sop: StructuredOperator | None):
     """(operator, emissions [E, n], π [n]) of ``hmm`` at the operator's
-    padded width."""
-    sop = StructuredOperator.from_hmm(hmm)
+    padded width; ``sop`` is the operator when the caller has it."""
+    if sop is None:
+        sop = StructuredOperator.from_hmm(hmm)
     return sop, hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n)
 
 
@@ -278,11 +279,15 @@ def execute_route(
     grid=None,
     *,
     device: torch.device | str,
+    sop: StructuredOperator | None = None,
 ):
     """Run ``seqs`` through ``route`` on ``device`` (a sharded route on its
     group's device). Returns ``[scores]`` per sequence, or ``[(scores,
-    path)]`` when the route carries ``paths`` in its params. A kernel's
-    failure propagates: no route carries on in plain PyTorch."""
+    path)]`` when the route carries ``paths`` in its params. ``sop`` is
+    ``hmm``'s structured operator at its lane-padded width, where the
+    caller built it already (``decode_auto`` hands over its plan's), so
+    the route does not decompose the model again. A kernel's failure
+    propagates: no route carries on in plain PyTorch."""
     from spec_viterbi_tpu_torch.ops import fused
 
     device = resolve_device(device)
@@ -298,7 +303,7 @@ def execute_route(
         from spec_viterbi_tpu_torch.ops.time_parallel import TimeParallelDecoder
 
         with span("svt.build"):
-            sop, em, pi = _model(hmm)
+            sop, em, pi = _model(hmm, sop)
             tp = TimeParallelDecoder(
                 sop, em, pi, k=route.params.get("k", TIME_PARALLEL_K_DEFAULT), device=device
             )
@@ -316,7 +321,7 @@ def execute_route(
         from spec_viterbi_tpu_torch.parallel.fused_tp import FusedTPDecoder
 
         with span("svt.build"):
-            sop, em, pi = _model(hmm)
+            sop, em, pi = _model(hmm, sop)
             tp = FusedTPDecoder(
                 sop, em, pi, _axis_group(grid, STATE_AXIS),
                 chunk=route.params.get("chunk", TP_CHUNK_DEFAULT),
@@ -340,7 +345,7 @@ def execute_route(
                     "operators); decode scores, or stream per time chunk"
                 )
             with span("svt.build"):
-                dec = ViterbiDecoder(hmm, use_kernels=False, device=device)
+                dec = ViterbiDecoder(hmm, use_kernels=False, device=device, sop=sop)
             return [dec.decode_path(s) for s in seqs]
         return decode_batch_structured_tp(hmm, seqs, _axis_group(grid, STATE_AXIS))
 
@@ -352,7 +357,7 @@ def execute_route(
 
         group = _axis_group(grid, DATA_AXIS)
         with span("svt.build"):
-            sop, em, pi = _model(hmm)
+            sop, em, pi = _model(hmm, sop)
             fd = (fused.FusedStructuredDecoder(sop, em, pi, device=group.device)
                   if fused.fused_eligible(sop) else None)
         if fd is not None:
@@ -364,7 +369,7 @@ def execute_route(
         # (plain tensor ops) for scores
         if paths:
             with span("svt.build"):
-                dec = ViterbiDecoder(hmm, use_kernels=False, device=group.device)
+                dec = ViterbiDecoder(hmm, use_kernels=False, device=group.device, sop=sop)
             return [dec.decode_path(s) for s in seqs]
         from spec_viterbi_tpu_torch.parallel.structured_tp import decode_batch_structured_dp
 
@@ -375,7 +380,7 @@ def execute_route(
     # the single-device decoder owns the fused/structured/dense sub-choice
     # (and its own bucketing and backpointer budget)
     with span("svt.build"):
-        dec = ViterbiDecoder(hmm, device=device)
+        dec = ViterbiDecoder(hmm, device=device, sop=sop)
     return dec.decode_path_batch(seqs) if paths else dec.decode_batch(seqs)
 
 
@@ -406,13 +411,16 @@ def decode_auto(
     planner knob (``prefer_time_parallel``, ``hbm_bytes``, ...) is
     reachable from here. ``verbose`` prints the route and its reason to
     stderr. A ``torch.profiler`` trace holds the call's stages as spans
-    (``utils/profiling.py::span``): ``svt.plan``, then ``svt.build``."""
+    (``utils/profiling.py::span``): ``svt.plan``, then ``svt.build``. The
+    model is decomposed once a call, in the plan, and the route runs on
+    that operator."""
     if not seqs:
         return []
     with span("svt.plan"):
         workload = Workload.from_seqs(seqs, paths=paths, optimize=optimize, **workload_kw)
-        route = plan_route(hmm, workload, grid, device=device)
+        sop = StructuredOperator.from_hmm(hmm)
+        route = plan_route(hmm, workload, grid, sop, device=device)
         route = Route(route.kind, route.reason, {**route.params, "paths": paths})
     if verbose:
         print(f"[scheduler] {route.kind}: {route.reason}", file=sys.stderr)
-    return execute_route(hmm, seqs, route, grid, device=device)
+    return execute_route(hmm, seqs, route, grid, device=device, sop=sop)

@@ -68,6 +68,8 @@ def assert_sop_equal(a, b):
 def _models():
     """Seeded reference HMMs, never the corpus files."""
     out = [("profile126", ref_from_port(port_gen.generate_profile_hmm(126, seed=0)))]
+    # a full Plan7 profile: its folded delete chains make 28 dense source rows
+    out.append(("plan7_40", ref_from_port(port_gen.generate_plan7_hmm(40, seed=1))))
     out.append(("random60", ref_gen.generate_random_hmm(60, seed=2)))
     for seed in range(3):
         rng = np.random.default_rng(100 + seed)
@@ -188,6 +190,46 @@ def test_batching_match(seed):
         a = port_batching.pad_batch(seqs, 8, t_pad=t_pad)
         b = ref_batching.pad_batch(seqs, 8, t_pad=t_pad)
         assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _coo_hmm(rng):
+    """A seeded COO model with dense rows, columns and diagonals among
+    random entries, duplicates, +inf entries and both signs of zero."""
+    n = int(rng.integers(2, 120))
+    src = [rng.integers(0, n, size=int(rng.integers(0, 8 * n)))]
+    dst = [rng.integers(0, n, size=src[0].size)]
+    for _ in range(int(rng.integers(0, 4))):
+        s, k = int(rng.integers(0, n)), int(rng.integers(0, n))
+        src += [np.full(k, s)]
+        dst += [rng.integers(0, n, size=k)]
+        d = int(rng.integers(-(n // 2), n // 2 + 1))
+        i = np.arange(max(0, -d), n - max(0, d))
+        src += [i]
+        dst += [i + d]
+    src, dst = np.concatenate(src).astype(np.int64), np.concatenate(dst).astype(np.int64)
+    probs = rng.choice([0.0, -0.0, 1.0, 2.5, np.inf, 0.25], size=src.size).astype(np.float32)
+    return ref_hmm.HMM(states_num=n, emit_num=3, trans_rows=src, trans_cols=dst, trans_probs=probs,
+                       emissions=np.zeros((3, n), np.float32),
+                       start_probabilities_cols=np.array([0]),
+                       start_probabilities=np.zeros(1, np.float32))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_decomposition_in_one_pass_matches_jax(seed):
+    """The port's one-pass ``from_hmm`` against the JAX package's loops over
+    rows, columns and diagonals, under every option, down to the sign of
+    a zero (every cell sees the same updates in the same order)."""
+    rng = np.random.default_rng(1000 + seed)
+    for _ in range(25):
+        model = _coo_hmm(rng)
+        for kw in ({}, {"dense_threshold": 2}, {"dense_threshold": 4, "max_diags": 2},
+                   {"pad_to": 256}):
+            port_sop = StructuredOperator.from_hmm(hmm_from_reference(model), **kw)
+            ref_sop = RefOperator.from_hmm(model, **kw)
+            assert_sop_equal(port_sop, ref_sop)
+            for f in ("diag_vals", "row_vals", "col_vals", "res_vals"):
+                assert np.array_equal(np.signbit(getattr(port_sop, f)),
+                                      np.signbit(getattr(ref_sop, f))), f
 
 
 def test_profile_model_structure_in_both_packages():

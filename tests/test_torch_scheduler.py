@@ -312,9 +312,10 @@ def test_decode_auto_forwards_workload_keywords(monkeypatch):
     seen = []
     real = scheduler.execute_route
 
-    def spy(hmm_, seqs_, route, grid=None, *, device):
+    def spy(hmm_, seqs_, route, grid=None, *, device, sop=None):
         seen.append(route)
-        return real(hmm_, seqs_, route, grid, device=device)
+        assert sop is not None  # the plan's operator, decomposed once a call
+        return real(hmm_, seqs_, route, grid, device=device, sop=sop)
 
     monkeypatch.setattr(scheduler, "execute_route", spy)
     scheduler.decode_auto(hmm, seqs, device="cpu", prefer_time_parallel=True)

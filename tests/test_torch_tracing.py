@@ -1,9 +1,10 @@
-"""The port's spans and its lane-step counter, on the CPU.
+"""The port's spans and its lane-step and dense-work counters, on the CPU.
 
 ``decode_auto`` opens ``svt.plan``, then ``svt.build``;
 ``FusedStructuredDecoder.decode_batch`` and
 ``decode_path_batch`` open ``svt.stage``, ``svt.launch`` and ``svt.fetch``
-(on the CPU the decoder runs its kernels' plain versions). Every span is a
+(on the CPU the decoder runs its kernels' plain versions), and so does
+``ViterbiDecoder.decode_batch`` in dense mode. Every span is a
 plain host op of the profiler, never a user annotation, which the profiler
 would mirror onto a card's timeline as device activity.
 """
@@ -13,8 +14,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from spec_viterbi_tpu_torch.io.generators import generate_profile_hmm
-from spec_viterbi_tpu_torch.ops import fused
+from spec_viterbi_tpu_torch.io.generators import generate_plan7_hmm, generate_profile_hmm
+from spec_viterbi_tpu_torch.models.decoder import ViterbiDecoder
+from spec_viterbi_tpu_torch.ops import fused, tropical
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
 from spec_viterbi_tpu_torch.scheduler import decode_auto
 from spec_viterbi_tpu_torch.utils.batching import bucket_plan
@@ -168,3 +170,68 @@ def test_lane_steps_of_decodes():
     assert fused.lane_steps == {"launched": 128 * 383 + 172 * 63,
                                 "real": 128 * 299 + 172 * 19}
     fused.reset_launches()
+
+
+def _dense_decoder(length=40):
+    """A dense-mode decoder: a Plan7 profile's folded delete chains leave
+    too many dense rows for the structured operator."""
+    dec = ViterbiDecoder(generate_plan7_hmm(length, seed=1), device="cpu")
+    assert dec.mode == "dense"
+    return dec
+
+
+def test_dense_decode_batch_spans():
+    dec = _dense_decoder()
+    out, events = _spans(lambda: dec.decode_batch(_seqs([30] * 20)))
+    assert len(out) == 20
+    # the bucket plan (none for uniform lengths), a staging, a launch, a fetch
+    assert _names(events) == ["svt.stage"] * 2 + ["svt.launch", "svt.fetch"]
+    _assert_disjoint(events)
+    seqs = _seqs([200] * 8 + [20] * 24, seed=4)
+    plan = bucket_plan([len(s) for s in seqs], lane_block=8)
+    assert [(len(idx), t) for idx, t in plan] == [(8, 256), (24, 64)]
+    out, events = _spans(lambda: dec.decode_batch(seqs))
+    assert [len(v) for v in out] == [dec.states_num] * 32
+    assert _names(events) == ["svt.stage"] + ["svt.stage", "svt.launch"] * 2 + ["svt.fetch"]
+    _assert_disjoint(events)
+
+
+def test_dense_decode_auto_spans_are_host_ops():
+    hmm = generate_plan7_hmm(40, seed=2)
+    out, events = _spans(lambda: decode_auto(hmm, _seqs([25] * 12), device="cpu"))
+    assert len(out) == 12
+    assert _names(events) == ["svt.plan", "svt.build", "svt.stage", "svt.stage", "svt.launch",
+                              "svt.fetch"]
+    _assert_disjoint(events)
+    for *_, e in events:
+        assert not e.is_user_annotation()
+        assert e.device_type() == torch.autograd.DeviceType.CPU
+
+
+def test_dense_work_reads_the_plan7_fill_share():
+    # the benchmark's model: 127,749 finite entries of a 1,024-state operator
+    hmm = generate_plan7_hmm(500, seed=3)
+    tropical.reset_launches()
+    out = decode_auto(hmm, _seqs([6] * 8), device="cpu")
+    assert len(out) == 8 and tropical.launches["minplus"] == 0  # plain steps on the CPU
+    assert tropical.dense_work == {"launched": 1024 ** 2 * 8 * 5, "real": 127_749 * 8 * 5}
+    share = 100 * tropical.dense_work["real"] / tropical.dense_work["launched"]
+    assert round(share, 2) == 12.18
+    tropical.reset_launches()
+    assert tropical.dense_work == {"launched": 0, "real": 0}
+
+
+def test_dense_work_counts_masked_lanes_as_not_real():
+    dec = _dense_decoder()
+    assert dec.dev.finite == dec.hmm.trans_num == 1019
+    tropical.reset_launches()
+    # 5 lanes padded to 8 (three of length 0), 29 steps; a lane is live
+    # while a step lies inside its length
+    dec.decode_batch(_seqs([30, 12, 1, 25, 30]), bucketed=False)
+    assert tropical.dense_work == {"launched": 128 ** 2 * 8 * 29,
+                                   "real": 1019 * (29 + 11 + 0 + 24 + 29)}
+    # the structured operator's plain loop and the fused decoder count nothing
+    tropical.reset_launches()
+    ViterbiDecoder(_model(), device="cpu").decode_batch(_seqs([30] * 4))
+    _decoder(_model()).decode_batch(_seqs([30] * 4))
+    assert tropical.dense_work == {"launched": 0, "real": 0}
