@@ -83,8 +83,11 @@ exits non-zero:
     at pinned cluster sizes 1, 2 and 8 (all-inf rows, a K too short for
     the cluster); the one-launch step (``dense_step``) with ``t`` at a
     lane's length, 64-step prefixes of the new loop against the plain loop
-    (uniform; lanes frozen at 0-64 steps), and the J = 1 step writing its
-    argmin into a pointer row (``dense_step_mv``): bit-equal;
+    (uniform; lanes frozen at 0-64 steps), the J = 1 step writing its
+    argmin into a pointer row (``dense_step_mv``), and the step with a
+    block list (the dense decoder's own on the corpus model at its lanes,
+    a Plan7 profile's at 512 lanes) against the step without one and the
+    plain step: bit-equal;
 15. ``spec_main``: ``SpecializedViterbi(level=1)`` delegating to the fused
     decoder (``svt_scores_fs``), then level 2: the slowdown warning,
     ``spec_with`` (441 products, a 10.43 GB stack; peak device memory),
@@ -294,6 +297,7 @@ ZERO_LAUNCHES = {"scores_masked": 0, "scores_masked_planned": 0, "scores_fs": 0,
 GENERIC_CHECK_STEPS = 511  # steps of the generic arms' kernel-vs-plain check outside the plans
 DENSE_LANES = 50  # the JAX package's dense baseline: 50 lanes x 3,500 symbols (bench.py:162-174)
 DENSE_PLAIN_STEPS = 64  # the plain version's prefix of the dense run_batch
+PLAN7_LENG, PLAN7_LANES = 500, 512  # the block-list check: the benchmark's Plan7 step
 DENSE_TIME_REPEATS = 2  # repeats of the dense time lines
 DENSE_SETUP_EVENTS = 6  # device kernels of a dense run_batch besides its steps (the first carry)
 DENSE_SETUP_ALLOCS = 8  # blocks a dense run_batch allocates (the first carry and its pair)
@@ -795,8 +799,9 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
         almost_equal_vec,
         viterbi_scores_oracle,
     )
-    from spec_viterbi_tpu_torch.io import generate_random_hmm
+    from spec_viterbi_tpu_torch.io import generate_plan7_hmm, generate_random_hmm
     from spec_viterbi_tpu_torch.models import specializer
+    from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
     from spec_viterbi_tpu_torch.models.decoder import SUBLANE
     from spec_viterbi_tpu_torch.ops import fused, tropical
     from spec_viterbi_tpu_torch.probes import bounds
@@ -969,7 +974,29 @@ def dense_and_spec(seed: int, card: str, hmm, uniform, ragged, scores_u, scores_
     held("J = 1 step with its epilogue, argmin into a pointer row", (w1, src[1, 0]),
          tropical.dense_step_mv_plain(dec.dev.a_t, v1_flat, em_t, o1, argmin=True))
     check(bool((src[0] == -1).all() and (src[2] == -1).all()), "the J = 1 step writes its own pointer row only")
-    phase("dense_kernel_vs_plain", max_abs_err=errs, bit_equal=True)
+    # the block list: the decoder's own (the corpus operator's all-+inf
+    # blocks) at its lanes, and a Plan7 profile's at 512 lanes, each step
+    # with its list bit-equal to the launch without one and to the plain step
+    p7 = DeviceHMM.from_hmm(generate_plan7_hmm(PLAN7_LENG, seed=seed), device=dev)
+    p7_v = ties(p7.padded, PLAN7_LANES)
+    p7_obs = torch.as_tensor(rng.integers(0, 20, size=(8, PLAN7_LANES)).astype(np.int32), device=dev)
+    p7_len = torch.as_tensor(np.resize(np.array([8, 3, 4, 5], np.int32), PLAN7_LANES), device=dev)
+    listed = {}
+    for label, dh, v_b, obs_b, len_b, t_b in (("corpus", dec.dev, v0, seqs_t, lengths, 1),
+                                              ("plan7", p7, p7_v, p7_obs, p7_len, 4)):
+        blk = dh.blocks
+        check(blk is not None, f"{label}: the dense decoder holds a block list")
+        step = [dh.a.T, v_b, dh.emissions.T, obs_b, len_b, t_b]
+        got = tropical.dense_step(*step, torch.empty_like(v_b), blocks=blk)
+        held(f"{label}: the step with its block list == without", got,
+             tropical.dense_step(*step, torch.empty_like(v_b)))
+        held(f"{label}: the step with its block list == plain", got, tropical.dense_step_plain(*step))
+        listed[label] = {"tiles": blk.tiles, "listed": blk.listed, "most": blk.most,
+                         "lanes": v_b.shape[1],
+                         "shape": tropical.minplus_shape(1, dh.padded, dh.padded, v_b.shape[1], dev,
+                                                         blocks=blk)}
+    del p7, p7_v
+    phase("dense_kernel_vs_plain", max_abs_err=errs, bit_equal=True, block_lists=listed)
 
     # ---- spec_main: level 1 through the fused decoder, level 2 dense ----
     ssecs = {}

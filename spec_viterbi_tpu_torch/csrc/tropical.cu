@@ -65,6 +65,25 @@
 //     size is chosen against the CTAs the card holds at once (read once a
 //     device from cudaOccupancyMaxActiveClusters); many tiles (the
 //     specializer's build) take a cluster of one.
+//   - a block list skips the stages of A that hold nothing: where A is
+//     sparse (a Plan7 profile's operator at 1,024 states is 12% finite, its
+//     folded delete chains an upper triangle, its insert blocks diagonals,
+//     two dense rows), the decoder builds once, from A's +inf pattern, the
+//     list of the (64-row tile, k stage) blocks with a finite entry: per
+//     row tile the offset of its run, then the ascending stage indices.
+//     Launched with a list (the decoder's batched step alone, i-contiguous
+//     A, no argmin, G = 1), a CTA walks only its tile's listed stages
+//     through the same ring, on 64-row tiles at any J (past 64 lanes the
+//     wide tile at half its rows: 30% of the Plan7 operator's blocks hold
+//     a finite entry at 64 rows, 45% at 128); the cluster of a tile splits
+//     that tile's listed stages, rank r taking [r n / S, (r + 1) n / S) of
+//     its n, so the split follows the count, not K, and the shape function
+//     sizes the cluster from the heaviest tile's count. Every unlisted
+//     stage's candidates are +inf + b, which never win a min (and a tie
+//     among them would not matter: no argmin), so the result is bit-equal
+//     to the launch without a list; a tile with an empty list applies the
+//     epilogue to +inf. A launch without a list instantiates the template
+//     with LIST false, whose code has no branch on the list.
 // J = 1 (a matvec) is bytes-bound, one read of A: a warp two rows, which
 // share each load of B, each lane reading 4 consecutive k as one float4
 // where stride_k = 1 and the rows are 16-byte aligned, 4 such loads of
@@ -224,12 +243,16 @@ __device__ __forceinline__ void mp_candidates(float (&acc)[TM][TN], int (&idx)[T
 // over g past 65,535). Dynamic shared memory: the ring and, with K slices
 // or a cluster of more than one, the [BM][BN] minima (and argmins) they
 // reduce over.
-template <int BM, int BN, int TM, int TN, int KS, bool A_I_CONTIG, bool ARGMIN>
+//
+// With LIST, blocks holds the block list of A at BM = 64 rows (gridDim.y
+// tiles: gridDim.y + 1 offsets, then the stage indices), and the cluster
+// splits the row tile's listed stages in place of K.
+template <int BM, int BN, int TM, int TN, int KS, bool A_I_CONTIG, bool ARGMIN, bool LIST>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN) * KS)
 minplus_tiled(const float* __restrict__ a, const long long* __restrict__ a_idx,
               const float* __restrict__ b, float* __restrict__ c, int* __restrict__ arg,
               long long sa_g, long long sa_i, long long sa_k, int G, int I, int K, int J,
-              int cluster, int k_split, MpEpi epi) {
+              int cluster, int k_split, MpEpi epi, const int* __restrict__ blocks) {
   using T = MpTile<BM, BN, TM, TN, KS, A_I_CONTIG>;
   extern __shared__ float4 mp_smem4[];
   float* smem = reinterpret_cast<float*>(mp_smem4);
@@ -239,9 +262,19 @@ minplus_tiled(const float* __restrict__ a, const long long* __restrict__ a_idx,
   const int kk0 = sl * T::KK;
   const int rank = blockIdx.x % cluster;
   const int i0 = blockIdx.y * BM, j0 = (blockIdx.x / cluster) * BN;
-  const int k_lo = (int)min((long long)K, (long long)rank * k_split);
-  const int k_hi = (int)min((long long)K, (long long)k_lo + k_split);
-  const int n_k = (k_hi - k_lo + MP_BK - 1) / MP_BK;
+  const int k_lo = LIST ? 0 : (int)min((long long)K, (long long)rank * k_split);
+  const int k_hi = LIST ? K : (int)min((long long)K, (long long)k_lo + k_split);
+  // LIST: this rank's share of the tile's listed stages
+  const int* listed = nullptr;
+  int n_k;
+  if (LIST) {
+    const int off = __ldg(blocks + blockIdx.y), n = __ldg(blocks + blockIdx.y + 1) - off;
+    const int s_lo = rank * n / cluster;
+    listed = blocks + gridDim.y + 1 + off + s_lo;
+    n_k = (rank + 1) * n / cluster - s_lo;
+  } else {
+    n_k = (k_hi - k_lo + MP_BK - 1) / MP_BK;
+  }
   float* red = smem;  // after the main loop: [BM][BN] minima, then argmins
   int* red_i = reinterpret_cast<int*>(smem + BM * BN);
   for (long long g = blockIdx.z; g < G; g += gridDim.z) {
@@ -260,7 +293,8 @@ minplus_tiled(const float* __restrict__ a, const long long* __restrict__ a_idx,
     for (int s = 0; s < MP_STAGES - 1; ++s) {
       if (s < n_k)
         mp_load_stage<T, BM, BN, A_I_CONTIG>(smem + s * T::STAGE, ag, bg, sa_i, sa_k, I, J, i0, j0,
-                                             k_lo + s * MP_BK, k_hi);
+                                             LIST ? __ldg(listed + s) * MP_BK : k_lo + s * MP_BK,
+                                             k_hi);
       cp_async_commit();
     }
     for (int it = 0; it < n_k; ++it) {
@@ -269,11 +303,13 @@ minplus_tiled(const float* __restrict__ a, const long long* __restrict__ a_idx,
       const int nx = it + MP_STAGES - 1;
       if (nx < n_k)
         mp_load_stage<T, BM, BN, A_I_CONTIG>(smem + (nx % MP_STAGES) * T::STAGE, ag, bg, sa_i, sa_k,
-                                             I, J, i0, j0, k_lo + nx * MP_BK, k_hi);
+                                             I, J, i0, j0,
+                                             LIST ? __ldg(listed + nx) * MP_BK : k_lo + nx * MP_BK,
+                                             k_hi);
       cp_async_commit();
       const float* as = smem + (it % MP_STAGES) * T::STAGE;
       const float* bs = as + T::A_STAGE;
-      const int kb = k_lo + it * MP_BK;
+      const int kb = LIST ? 0 : k_lo + it * MP_BK;  // argmin's k: no argmin with LIST
       if (A_I_CONTIG) {
         // the next k's float4s load while this k's candidates compute
         float4 xa[TM / 4], xb[TN / 4];
@@ -527,15 +563,20 @@ minplus_rows(const float* __restrict__ a, const long long* __restrict__ a_idx,
 }
 
 // The tiles of the tiled arm: (BM, BN, TM, TN). Narrow tiles for the
-// decoder's few lanes, each BN fitting its J; the wide one for the build.
-enum MpCfg { MP_N16, MP_N32, MP_N56, MP_N64, MP_WIDE, MP_ROWS };
-constexpr int MP_CFG[5][5] = {  // BM, BN, TM, TN, KS
-    {64, 16, 4, 4, 1}, {64, 32, 4, 8, 1}, {64, 56, 8, 8, 2}, {64, 64, 4, 8, 1}, {128, 128, 8, 8, 1}};
+// decoder's few lanes, each BN fitting its J; the wide one for the build;
+// the wide tile at half its rows for a block list past 64 lanes (launched
+// with a list only: every tile of a list launch has MP_LIST_ROWS rows).
+enum MpCfg { MP_N16, MP_N32, MP_N56, MP_N64, MP_WIDE, MP_W64, MP_ROWS };
+constexpr int MP_CFG[6][5] = {  // BM, BN, TM, TN, KS
+    {64, 16, 4, 4, 1}, {64, 32, 4, 8, 1}, {64, 56, 8, 8, 2}, {64, 64, 4, 8, 1}, {128, 128, 8, 8, 1},
+    {64, 128, 8, 8, 1}};
+constexpr int MP_LIST_ROWS = 64;
 
 struct MpShape {
   int cfg, bm, bn, tm, tn, ks, threads, cluster, k_split, stages;
   dim3 grid;
   size_t smem;
+  bool list;  // the launch walks a block list
 };
 
 int tune_cluster = 0;  // svt_minplus_tune: 0 takes the shape function's choice
@@ -564,23 +605,28 @@ size_t smem_bytes(int bm, int bn, bool i_contig, bool argmin, bool reduce) {
 int minplus_launch(const MpShape& s, bool i_contig, bool argmin, cudaStream_t st, int* resident,
                    const float* a, const long long* a_idx, const float* b, float* c, int* arg,
                    long long sa_g, long long sa_i, long long sa_k, int g, int i, int k, int j,
-                   const MpEpi& epi);
+                   const MpEpi& epi, const int* blocks);
 
-// CTAs of a tiled launch the card holds at once, by tile, layout, argmin
-// and cluster size (1, 2, 4, 8, 16): read once a device (0: not yet).
-int capacity[MP_MAX_DEVICES][MP_ROWS][2][2][5];
+// CTAs of a tiled launch the card holds at once, by tile, layout, argmin,
+// block list and cluster size (1, 2, 4, 8, 16): read once a device (0: not
+// yet).
+int capacity[MP_MAX_DEVICES][MP_ROWS][2][2][2][5];
 
 // J = 1 takes the row arm. Otherwise the narrowest tile that holds J
 // (J > 64: the wide tile), then the cluster size S of 1, 2, 4, 8 or 16
 // (other sizes measured slower) that minimises the waves of CTAs the card
 // holds at once times each split's stages, plus two for the ring's fill
 // and the reduction: a larger S splits K finer, but past one wave its CTAs
-// queue. K shorter than S stages leaves the last splits empty.
-int minplus_shape(int g, int i, int k, int j, bool i_contig, bool argmin, MpShape* s) {
+// queue. K shorter than S stages leaves the last splits empty. With a
+// block list (list_max >= 0: the most stages any row tile lists), past 64
+// lanes the wide tile at half its rows, and a split's stages are the
+// heaviest tile's share.
+int minplus_shape(int g, int i, int k, int j, bool i_contig, bool argmin, int list_max,
+                  MpShape* s) {
   const int gz = g < MP_MAX_GRID ? g : MP_MAX_GRID;
   if (j == 1) {
     *s = {MP_ROWS, 1, 1, 2, 4, 1, MP_ROW_WARPS * 32, 1, k, 0,
-          dim3((i + 2 * MP_ROW_WARPS - 1) / (2 * MP_ROW_WARPS), gz), 0};
+          dim3((i + 2 * MP_ROW_WARPS - 1) / (2 * MP_ROW_WARPS), gz), 0, false};
     return 0;
   }
   int dev = 0;
@@ -588,19 +634,21 @@ int minplus_shape(int g, int i, int k, int j, bool i_contig, bool argmin, MpShap
   if (rc) return rc;
   if (dev < 0 || dev >= MP_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   int cfg = j <= 16 ? MP_N16 : j <= 32 ? MP_N32 : j <= 56 ? MP_N56 : j <= 64 ? MP_N64 : MP_WIDE;
+  if (cfg == MP_WIDE && list_max >= 0) cfg = MP_W64;
   const int bm = MP_CFG[cfg][0], bn = MP_CFG[cfg][1], tm = MP_CFG[cfg][2], tn = MP_CFG[cfg][3];
   const int ks = MP_CFG[cfg][4];
   const int threads = (bm / tm) * (bn / tn) * ks;
   const int tiles_i = (i + bm - 1) / bm, tiles_j = (j + bn - 1) / bn;
   if (tiles_i > MP_MAX_GRID) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)tiles_i * tiles_j * gz;
-  const int stages = (k + MP_BK - 1) / MP_BK;
+  const bool list = list_max >= 0;
+  const int stages = list ? list_max : (k + MP_BK - 1) / MP_BK;
   auto shape_of = [&](int cluster) -> MpShape {
     int k_split = (stages + cluster - 1) / cluster * MP_BK;
     if (k_split < MP_BK) k_split = MP_BK;
     return {cfg, bm, bn, tm, tn, ks, threads, cluster, k_split, MP_STAGES,
             dim3(tiles_j * cluster, tiles_i, gz),
-            smem_bytes(bm, bn, i_contig, argmin, cluster > 1 || ks > 1)};
+            smem_bytes(bm, bn, i_contig, argmin, cluster > 1 || ks > 1), list};
   };
   int cluster = 1;
   if (tune_cluster > 0) {
@@ -608,10 +656,10 @@ int minplus_shape(int g, int i, int k, int j, bool i_contig, bool argmin, MpShap
   } else {
     long long best = -1;
     for (int e = 0, c = 1; c <= MP_MAX_CLUSTER && (c == 1 || c <= stages); ++e, c *= 2) {
-      int& cap = capacity[dev][cfg][i_contig][argmin][e];
+      int& cap = capacity[dev][cfg][i_contig][argmin][list][e];
       if (!cap) {
         rc = minplus_launch(shape_of(c), i_contig, argmin, nullptr, &cap, nullptr, nullptr, nullptr,
-                            nullptr, nullptr, 0, 0, 0, 0, 0, 0, 0, MpEpi{});
+                            nullptr, nullptr, 0, 0, 0, 0, 0, 0, 0, MpEpi{}, nullptr);
         if (rc) return rc;
         if (cap < 1) cap = 1;
       }
@@ -630,13 +678,14 @@ int minplus_shape(int g, int i, int k, int j, bool i_contig, bool argmin, MpShap
 // One launch of the tiled arm in the shape s or, where resident is not
 // null, no launch: the CTAs of that launch the card holds at once
 // (cudaOccupancyMaxActiveClusters for a cluster).
-template <int CFG, bool I_CONTIG, bool ARGMIN>
+template <int CFG, bool I_CONTIG, bool ARGMIN, bool LIST>
 int launch_tiled(const MpShape& s, cudaStream_t st, int* resident, const float* a,
                  const long long* a_idx, const float* b, float* c, int* arg, long long sa_g,
-                 long long sa_i, long long sa_k, int g, int i, int k, int j, const MpEpi& epi) {
+                 long long sa_i, long long sa_k, int g, int i, int k, int j, const MpEpi& epi,
+                 const int* blocks) {
   constexpr int BM = MP_CFG[CFG][0], BN = MP_CFG[CFG][1], TM = MP_CFG[CFG][2], TN = MP_CFG[CFG][3];
   constexpr int KS = MP_CFG[CFG][4];
-  auto kern = minplus_tiled<BM, BN, TM, TN, KS, I_CONTIG, ARGMIN>;
+  auto kern = minplus_tiled<BM, BN, TM, TN, KS, I_CONTIG, ARGMIN, LIST>;
   static bool attrs_set[MP_MAX_DEVICES];  // per instantiation and device
   int dev = 0;
   int rc = (int)cudaGetDevice(&dev);
@@ -667,26 +716,31 @@ int launch_tiled(const MpShape& s, cudaStream_t st, int* resident, const float* 
     return rc;
   }
   return (int)cudaLaunchKernelEx(&cfg, kern, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j,
-                                 s.cluster, s.k_split, epi);
+                                 s.cluster, s.k_split, epi, blocks);
 }
 
+// A block list is instantiated for the decoder's batched step alone:
+// i-contiguous A, no argmin (svt_minplus refuses any other), 64-row tiles.
 template <int CFG>
 int launch_cfg(const MpShape& s, bool i_contig, bool argmin, cudaStream_t st, int* resident,
                const float* a, const long long* a_idx, const float* b, float* c, int* arg,
                long long sa_g, long long sa_i, long long sa_k, int g, int i, int k, int j,
-               const MpEpi& epi) {
+               const MpEpi& epi, const int* blocks) {
+  if constexpr (MP_CFG[CFG][0] == MP_LIST_ROWS)
+    if (s.list)
+      return launch_tiled<CFG, true, false, true>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
   if (i_contig)
-    return argmin ? launch_tiled<CFG, true, true>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi)
-                  : launch_tiled<CFG, true, false>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
-  return argmin ? launch_tiled<CFG, false, true>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi)
-                : launch_tiled<CFG, false, false>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
+    return argmin ? launch_tiled<CFG, true, true, false>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, nullptr)
+                  : launch_tiled<CFG, true, false, false>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, nullptr);
+  return argmin ? launch_tiled<CFG, false, true, false>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, nullptr)
+                : launch_tiled<CFG, false, false, false>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, nullptr);
 }
 
 // The launch of shape s (or, with resident, its resident CTAs).
 int minplus_launch(const MpShape& s, bool i_contig, bool argmin, cudaStream_t st, int* resident,
                    const float* a, const long long* a_idx, const float* b, float* c, int* arg,
                    long long sa_g, long long sa_i, long long sa_k, int g, int i, int k, int j,
-                   const MpEpi& epi) {
+                   const MpEpi& epi, const int* blocks) {
   if (s.cfg == MP_ROWS) {
     if (resident) {
       int n = 0, sms = 0;
@@ -703,11 +757,12 @@ int minplus_launch(const MpShape& s, bool i_contig, bool argmin, cudaStream_t st
     return 0;
   }
   switch (s.cfg) {
-    case MP_N16: return launch_cfg<MP_N16>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
-    case MP_N32: return launch_cfg<MP_N32>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
-    case MP_N56: return launch_cfg<MP_N56>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
-    case MP_N64: return launch_cfg<MP_N64>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
-    default: return launch_cfg<MP_WIDE>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi);
+    case MP_N16: return launch_cfg<MP_N16>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
+    case MP_N32: return launch_cfg<MP_N32>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
+    case MP_N56: return launch_cfg<MP_N56>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
+    case MP_N64: return launch_cfg<MP_N64>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
+    case MP_W64: return launch_tiled<MP_W64, true, false, true>(s, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
+    default: return launch_cfg<MP_WIDE>(s, i_contig, argmin, st, resident, a, a_idx, b, c, arg, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
   }
 }
 
@@ -722,40 +777,49 @@ extern "C" {
 // epilogue) with its strides over states and symbols, obs ([j] int32, or
 // nullptr and the scalar o), lengths ([j] int32 or nullptr) and t give the
 // decoder's step (g = 1; with lengths, b is the carry and row0 + i <= k:
-// a masked lane keeps b[row0 + r, j] in c[r, j]).
+// a masked lane keeps b[row0 + r, j] in c[r, j]). blocks (nullptr: every
+// stage) is A's block list at 64 rows a tile (ceil(i / 64) tiles),
+// blocks_max the most stages a tile lists: for g = 1, j > 1, i-contiguous
+// A and no argmin.
 int svt_minplus(const float* a, const long long* a_idx, const float* b, float* c, int* argmin,
                 long long sa_g, long long sa_i, long long sa_k, int g, int i, int k, int j,
                 const float* em, long long em_si, long long em_so, const int* obs, int o,
-                const int* lengths, int t, int row0, void* stream) {
+                const int* lengths, int t, int row0, const int* blocks, int blocks_max,
+                void* stream) {
   if (g <= 0 || i <= 0 || j <= 0) return 0;
   const bool i_contig = a_i_contig(sa_i, sa_k);
+  if (blocks && (g != 1 || j == 1 || !i_contig || argmin || a_idx || blocks_max < 0))
+    return (int)cudaErrorInvalidValue;
   MpShape s;
-  int rc = minplus_shape(g, i, k, j, i_contig, argmin != nullptr, &s);
+  int rc = minplus_shape(g, i, k, j, i_contig, argmin != nullptr, blocks ? blocks_max : -1, &s);
   if (rc) return rc;
   if (lengths && (row0 < 0 || (long long)row0 + i > k)) return (int)cudaErrorInvalidValue;
   const MpEpi epi = {em, em_si, em_so, obs, lengths, o, t, row0};
   rc = minplus_launch(s, i_contig, argmin != nullptr, (cudaStream_t)stream, nullptr, a, a_idx, b, c,
-                      argmin, sa_g, sa_i, sa_k, g, i, k, j, epi);
+                      argmin, sa_g, sa_i, sa_k, g, i, k, j, epi, blocks);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }
 
 // The shape svt_minplus launches for a [g, i, j] output over k in the
-// layout of (sa_i, sa_k), with or without argmin: out[0..9] = tile rows
+// layout of (sa_i, sa_k), with or without argmin, with a block list whose
+// heaviest tile lists blocks_max stages (-1: no list): out[0..9] = tile rows
 // and columns (1 x 1: the row arm), thread tile rows and columns (2 x 4
 // on the row arm: a warp's two rows, a lane's float4 of k), K slices a
 // CTA, threads a CTA, cluster size (the CTAs that split K), k a split,
 // stages of the ring (0: none), and the CTAs of the launch the card holds
-// at once; ctas = CTAs in all.
+// at once; ctas = CTAs in all. With a list, k a split is the heaviest
+// tile's share.
 int svt_minplus_shape(int g, int i, int k, int j, long long sa_i, long long sa_k, int argmin,
-                      int* out, long long* ctas) {
+                      int blocks_max, int* out, long long* ctas) {
   MpShape s;
   const bool i_contig = a_i_contig(sa_i, sa_k);
-  int rc = minplus_shape(g, i, k, j, i_contig, argmin != 0, &s);
+  if (blocks_max >= 0 && (j == 1 || !i_contig || argmin)) return (int)cudaErrorInvalidValue;
+  int rc = minplus_shape(g, i, k, j, i_contig, argmin != 0, blocks_max, &s);
   if (rc) return rc;
   int resident = 0;
   rc = minplus_launch(s, i_contig, argmin != 0, nullptr, &resident, nullptr, nullptr, nullptr,
-                      nullptr, nullptr, 0, sa_i, sa_k, g, i, k, j, MpEpi{});
+                      nullptr, nullptr, 0, sa_i, sa_k, g, i, k, j, MpEpi{}, nullptr);
   if (rc) return rc;
   const int v[10] = {s.bm, s.bn, s.tm, s.tn, s.ks, s.threads, s.cluster, s.k_split, s.stages, resident};
   for (int q = 0; q < 10; ++q) out[q] = v[q];

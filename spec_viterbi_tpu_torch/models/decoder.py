@@ -64,7 +64,10 @@ class DeviceHMM:
     so they stay at the semiring zero through any number of steps and are
     sliced off on extraction. ``dense=False`` leaves both out (structured
     mode reads only the emissions and π). ``finite`` counts the finite
-    entries of the dense operator (0 without it).
+    entries of the dense operator (0 without it); ``blocks`` is the block
+    list of the batched step's view
+    (:func:`~spec_viterbi_tpu_torch.ops.tropical.block_list`; None where
+    no block is all +inf), which that step hands ``svt_minplus``.
     """
 
     a_t: torch.Tensor | None  # [n, n]
@@ -74,18 +77,21 @@ class DeviceHMM:
     states_num: int
     padded: int
     finite: int = 0
+    blocks: tropical.BlockList | None = None
 
     @classmethod
     def from_hmm(cls, hmm: HMM, dense: bool = True, *, device: torch.device | str) -> "DeviceHMM":
         device = resolve_device(device)
         n = pad_to_lane(hmm.states_num)
         a_t = a = None
-        finite = 0
+        finite, blocks = 0, None
         if dense:
             mat = hmm.transition_matrix(pad_to=n)
             a_t = torch.as_tensor(mat.T.copy(), device=device)
             a = torch.as_tensor(mat, device=device)
-            finite = int(np.count_nonzero(np.isfinite(mat)))
+            held = np.isfinite(mat)
+            finite = int(np.count_nonzero(held))
+            blocks = tropical.block_list(held.T, device)  # A[i, k] = mat[k, i]
         return cls(
             a_t=a_t,
             a=a,
@@ -94,6 +100,7 @@ class DeviceHMM:
             states_num=hmm.states_num,
             padded=n,
             finite=finite,
+            blocks=blocks,
         )
 
 
@@ -137,7 +144,8 @@ def _decode_scores_and_path(a_t, pi, em, seq: np.ndarray) -> tuple[torch.Tensor,
     return v, torch.cat([rev[:, 0], last])
 
 
-def _decode_scores_batch(a, pi, em, seqs_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def _decode_scores_batch(a, pi, em, seqs_t: torch.Tensor, lengths: torch.Tensor,
+                         blocks: tropical.BlockList | None = None) -> torch.Tensor:
     """seqs_t: [T, B] int32 (padded), lengths: [B] int32. Returns [B, n].
 
     The carry is state-major ([n, B]), so each step is one TN product that
@@ -145,7 +153,9 @@ def _decode_scores_batch(a, pi, em, seqs_t: torch.Tensor, lengths: torch.Tensor)
     once ``t`` reaches its length. A step is one launch
     (:func:`~spec_viterbi_tpu_torch.ops.tropical.dense_step`: the emission
     add and the mask in the kernel's epilogue) from one carry of a
-    ping-pong pair, allocated once, into the other."""
+    ping-pong pair, allocated once, into the other. ``blocks``, the
+    operator's block list (``DeviceHMM.blocks``), has each launch read
+    only the blocks of ``a.T`` that hold a finite entry."""
     em_t = em.T  # [n, E]
     a_view = a.T  # A[i, k] = a[k, i]: the TN layout, i contiguous
     ctx, stream = _stream_of(a.device)
@@ -154,7 +164,7 @@ def _decode_scores_batch(a, pi, em, seqs_t: torch.Tensor, lengths: torch.Tensor)
         bufs[1] = torch.empty_like(bufs[0])
         for t in range(1, seqs_t.shape[0]):
             tropical.dense_step(a_view, bufs[(t - 1) % 2], em_t, seqs_t, lengths, t, bufs[t % 2],
-                                stream=stream)
+                                blocks=blocks, stream=stream)
     return bufs[(seqs_t.shape[0] - 1) % 2].T
 
 
@@ -317,7 +327,10 @@ class ViterbiDecoder:
         batch, lengths = pad_batch(seqs, SUBLANE, t_pad=t_pad)
         if self.mode == "dense":
             lanes, t_total = batch.shape
+            blocks = self.dev.blocks  # lanes pad to SUBLANE: the step reads its list
+            read = blocks.listed * tropical.LIST_ROWS * tropical.STAGE_K if blocks else self.dev.padded ** 2
             tropical.dense_work["launched"] += self.dev.padded ** 2 * lanes * (t_total - 1)
+            tropical.dense_work["read"] += read * lanes * (t_total - 1)
             live = int(np.maximum(lengths.astype(np.int64) - 1, 0).sum())
             tropical.dense_work["real"] += self.dev.finite * live
         return (
@@ -332,7 +345,7 @@ class ViterbiDecoder:
         seqs_t, lengths = handle
         if self.mode == "dense":
             return _decode_scores_batch(
-                self.dev.a, self.dev.pi, self.dev.emissions, seqs_t, lengths
+                self.dev.a, self.dev.pi, self.dev.emissions, seqs_t, lengths, self.dev.blocks
             )
         em_t = self.dev.emissions.T
         v0 = em_t[:, seqs_t[0].long()] + self.dev.pi[:, None]

@@ -201,9 +201,10 @@ def library() -> ctypes.CDLL:
     i64 = ctypes.c_longlong
     lib.svt_minplus.argtypes = ([vp] * 5 + [i64] * 3 + [i32] * 4  # the product
                                 + [vp, i64, i64, vp, i32, vp, i32, i32]  # the step's epilogue
+                                + [vp, i32]  # the block list
                                 + [vp])
     lib.svt_minplus.restype = i32
-    lib.svt_minplus_shape.argtypes = [i32] * 4 + [i64] * 2 + [i32] + [vp] * 2
+    lib.svt_minplus_shape.argtypes = [i32] * 4 + [i64] * 2 + [i32] * 2 + [vp] * 2
     lib.svt_minplus_shape.restype = i32
     lib.svt_minplus_tune.argtypes, lib.svt_minplus_tune.restype = [i32], None
     for which, struct in ((0, ScoresDesc), (1, FsDesc)):

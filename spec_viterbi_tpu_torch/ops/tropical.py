@@ -17,7 +17,10 @@ specializer goes through (:mod:`.dispatch`), and :func:`minplus_plain` is
 its plain version. :func:`dense_step` and :func:`dense_step_mv` launch the
 same kernel with its epilogue, one launch a step of the dense decoder
 (the emission add and the length mask folded in), beside their plain
-versions :func:`dense_step_plain` and :func:`dense_step_mv_plain`. Each
+versions :func:`dense_step_plain` and :func:`dense_step_mv_plain`.
+:func:`block_list` builds, once an operator, the list of its blocks that
+hold a finite entry, which :func:`dense_step` hands the kernel so that it
+reads only those (the same bits: the skipped candidates are +inf). Each
 wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; any other device raises. All of them count their
 launches under ``launches["minplus"]``. Each candidate is one f32 add, rounded once, and the
@@ -29,7 +32,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from spec_viterbi_tpu_torch.ops import _build
@@ -45,9 +50,16 @@ launches = {"minplus": 0}
 
 # Operator entries of the dense decoder's steps, counted by
 # ``ViterbiDecoder.prepare_batch`` from the host's shapes and lengths: every
-# entry a step's launch reads for every lane (``launched``, n_pad² a lane)
-# and the finite ones for the lanes still live at that step (``real``).
-dense_work = {"launched": 0, "real": 0}
+# entry of the operator for every lane (``launched``, n_pad² a lane), the
+# entries of the blocks the step's launch reads for every lane (``read``:
+# its block list's, else n_pad²) and the finite ones for the lanes still
+# live at that step (``real``).
+dense_work = {"launched": 0, "read": 0, "real": 0}
+
+# The blocks of a block list (csrc/tropical.cu): k a stage of the tiled
+# arm's ring (MP_BK) and the rows of a list launch's tiles (MP_LIST_ROWS).
+STAGE_K = 16
+LIST_ROWS = 64
 
 
 def reset_launches() -> None:
@@ -146,6 +158,41 @@ def minplus_plain(
 
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockList:
+    """The blocks of an operator ``A[i, k]`` that hold a finite entry, at
+    :data:`LIST_ROWS` rows a tile and :data:`STAGE_K` k a stage: ``table``
+    (int32 on the operator's device) holds the offset of each row tile's
+    run, ``tiles + 1`` of them, then each tile's stage indices in ascending
+    order; ``listed`` blocks in all, ``most`` the most one tile lists."""
+
+    tiles: int
+    listed: int
+    most: int
+    table: torch.Tensor
+
+
+def block_list(finite: np.ndarray, device: torch.device | str) -> BlockList | None:
+    """The block list of an operator from its pattern ``finite`` ([I, K]
+    bool, ``A[i, k]`` finite; a transposed view of a contiguous [K, I]
+    array is read without a copy), on ``device``: None where every block
+    holds a finite entry, since the launch reads every stage anyway."""
+    i, k = finite.shape
+    stages, tiles = -(-k // STAGE_K), -(-i // LIST_ROWS)
+    whole = finite.T  # [K, I]
+    if (k, i) != (stages * STAGE_K, tiles * LIST_ROWS):  # pad with +inf to whole blocks
+        whole = np.zeros((stages * STAGE_K, tiles * LIST_ROWS), dtype=bool)
+        whole[:k, :i] = finite.T
+    by_stage = whole.reshape(stages, STAGE_K, -1).any(axis=1)  # [stages, I]
+    held = by_stage.reshape(stages, tiles, LIST_ROWS).any(axis=2).T  # [tiles, stages]
+    if held.all():
+        return None
+    counts = held.sum(axis=1)
+    table = np.concatenate(([0], np.cumsum(counts), np.nonzero(held)[1])).astype(np.int32)
+    return BlockList(tiles, int(counts.sum()), int(counts.max(initial=0)),
+                     torch.as_tensor(table, device=device))
+
+
 def _device_guard(device: torch.device):
     """The device context of ``device``, entered only where it is not the
     current device already (entering costs the host a few µs a launch)."""
@@ -167,9 +214,10 @@ def _want(x: torch.Tensor | None, name: str, dtype, shape: tuple, device: torch.
 
 def _launch(a: torch.Tensor, a_idx, b: torch.Tensor, c: torch.Tensor, arg, sa_g: int, g: int,
             i: int, k: int, j: int, em_t=None, obs_ptr=None, o: int = 0, lengths=None, t: int = 0,
-            row0: int = 0, stream: int | None = None) -> None:
+            row0: int = 0, blocks: BlockList | None = None, stream: int | None = None) -> None:
     """One launch of ``svt_minplus`` on the operands' device (the epilogue
-    where ``em_t`` is given); counts it."""
+    where ``em_t`` is given, only the listed blocks where ``blocks`` is);
+    counts it."""
     lib = _build.library()
     with _device_guard(b.device):
         if stream is None:
@@ -179,7 +227,9 @@ def _launch(a: torch.Tensor, a_idx, b: torch.Tensor, c: torch.Tensor, arg, sa_g:
             None if arg is None else arg.data_ptr(), sa_g, a.stride(-2), a.stride(-1), g, i, k, j,
             None if em_t is None else em_t.data_ptr(),
             0 if em_t is None else em_t.stride(0), 0 if em_t is None else em_t.stride(1),
-            obs_ptr, o, None if lengths is None else lengths.data_ptr(), t, row0, stream,
+            obs_ptr, o, None if lengths is None else lengths.data_ptr(), t, row0,
+            None if blocks is None else blocks.table.data_ptr(), -1 if blocks is None else blocks.most,
+            stream,
         )
     _build.check(lib, rc, "svt_minplus")
     launches["minplus"] += 1
@@ -260,7 +310,8 @@ def dense_step_plain(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, 
 
 def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: torch.Tensor,
                lengths: torch.Tensor | None, t: int, out: torch.Tensor, *,
-               row0: int = 0, stream: int | None = None) -> torch.Tensor:
+               row0: int = 0, blocks: BlockList | None = None,
+               stream: int | None = None) -> torch.Tensor:
     """One step of the dense batched decode in one ``svt_minplus`` launch
     (counted under ``minplus``), the emission add and the length mask in
     its epilogue::
@@ -273,9 +324,12 @@ def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: t
     matrix); ``v`` and ``out`` [n, B] f32, contiguous and distinct (a
     ping-pong pair of carries); ``em_t`` [n, E] f32, any strides; ``obs``
     [T, B] int32, contiguous; ``lengths`` [B] int32. Symbols must lie in
-    ``[0, E)``: the card does not check them. ``stream`` (a CUDA stream
-    handle) saves the lookup of the current stream a step. Returns
-    ``out``. A CPU tensor takes the plain version.
+    ``[0, E)``: the card does not check them. ``blocks``, the block list
+    of ``a_view`` (:func:`block_list`), has the kernel read only the
+    listed blocks, with the same result (more than one lane: J = 1 takes
+    the row arm, which reads every entry).
+    ``stream`` (a CUDA stream handle) saves the lookup of the current
+    stream a step. Returns ``out``. A CPU tensor takes the plain version.
 
     A step may also be one row block of a state-sharded step: ``a_view``
     [n_out, K] (the block's rows of the operator), ``v`` the whole [K, B]
@@ -301,10 +355,17 @@ def dense_step(a_view: torch.Tensor, v: torch.Tensor, em_t: torch.Tensor, obs: t
         raise ValueError("out must not be v: other CTAs still read v")
     if not 0 <= t < obs.shape[0]:
         raise ValueError(f"t = {t} outside obs's {obs.shape[0]} steps")
+    if blocks is not None:
+        if lanes < 2 or blocks.tiles != -(-n // LIST_ROWS):
+            raise ValueError(f"a list of {blocks.tiles} tiles of {LIST_ROWS} rows does not fit "
+                             f"{n} rows at {lanes} lanes")
+        if a_view.stride(0) != 1 or blocks.table.device != dev:
+            raise ValueError("a block list takes the transposed view (stride 1 over rows) and "
+                             "its table on the operands' device")
     if n and lanes:
         _launch(a_view, None, v, out, None, 0, 1, n, k, lanes, em_t=em_t,
                 obs_ptr=obs.data_ptr() + t * obs.stride(0) * obs.element_size(), lengths=lengths,
-                t=t, row0=row0, stream=stream)
+                t=t, row0=row0, blocks=blocks, stream=stream)
     return out
 
 
@@ -358,25 +419,30 @@ _shapes: dict[tuple, dict] = {}
 
 
 def minplus_shape(g: int, i: int, k: int, j: int, device: torch.device, *,
-                  i_contiguous: bool = True, argmin: bool = False) -> dict:
+                  i_contiguous: bool = True, argmin: bool = False,
+                  blocks: BlockList | None = None) -> dict:
     """The shape ``svt_minplus`` launches for a [g, i, j] output over ``k``
     with A i-contiguous (the batch step's transposed view) or k-contiguous,
-    with or without argmin (cached): ``tile`` rows and columns (1 x 1 is
+    with or without argmin, with or without the block list ``blocks``
+    (cached): ``tile`` rows and columns (1 x 1 is
     the J = 1 row arm), ``thread_tile`` (a thread's minima; the row arm's
     1 x 4 is a lane's float4 of k), ``slices`` (thread groups that split a
     stage's k in a CTA), ``threads`` a CTA, ``cluster`` (the CTAs that
-    split K, 1 for none), ``k_split``, ``stages`` of the shared-memory ring
+    split K, or a tile's listed stages, 1 for none), ``k_split`` (with a
+    list, the heaviest tile's share), ``stages`` of the shared-memory ring
     (0 for none), ``resident_ctas`` (the launch's CTAs the card holds at
     once) and ``ctas`` in all."""
     device = torch.device(device)
-    key = (device.index, g, i, k, j, i_contiguous, argmin)
+    most = -1 if blocks is None else blocks.most
+    key = (device.index, g, i, k, j, i_contiguous, argmin, most)
     if key not in _shapes:
         lib = _build.library()
         vals = (ctypes.c_int * 10)()
         ctas = ctypes.c_longlong()
         sa_i, sa_k = (1, i) if i_contiguous else (k, 1)
         with torch.cuda.device(device):
-            rc = lib.svt_minplus_shape(g, i, k, j, sa_i, sa_k, int(argmin), vals, ctypes.byref(ctas))
+            rc = lib.svt_minplus_shape(g, i, k, j, sa_i, sa_k, int(argmin), most, vals,
+                                       ctypes.byref(ctas))
         _build.check(lib, rc, "svt_minplus_shape")
         bm, bn, tm, tn, slices, threads, cluster, k_split, stages, resident = vals
         _shapes[key] = {"tile": [bm, bn], "thread_tile": [tm, tn], "slices": slices,

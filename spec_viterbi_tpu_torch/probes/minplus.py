@@ -37,6 +37,15 @@ checked bit-equal to ``minplus_plain``):
 - with ``--tune`` (a tree with ``tropical.minplus_tune``): the 56-lane
   step at each pinned cluster size (``tune_ms``).
 
+With ``--plan7`` it prints only the ``plan7`` line: the dense batch step of
+a Plan7 profile at LENG 500 (``io.generate_plan7_hmm(500)``, 1,024 padded
+states, 12% finite) at 512 lanes, lanes masked past their lengths, as
+``tropical.dense_step`` launches it: the median of 5 CUDA-event timings of
+a chain of 100 steps, in µs a step, without a block list and (a tree whose
+``DeviceHMM`` has one) with the operator's list, at the shape function's
+cluster and at each pinned cluster size; every output bit-equal to the
+launch without a list and to ``dense_step_plain``.
+
 Seeded operands, normal(5, 2). Exits 1 without a CUDA device.
 """
 
@@ -57,6 +66,7 @@ COLD_COPIES = 8  # 8 x 23.7 MB: a copy comes back after 166 MB of others
 HOST_CALLS, HOST_ROUNDS = 100, 5
 DENSE_LANES, DENSE_T, EMIT = 56, 3500, 20
 TUNE = (0, 1, 2, 4, 8, 16)  # pinned cluster sizes of --tune (0: the shape function's)
+PLAN7_LENG, PLAN7_LANES = 500, 512  # --plan7: the benchmark's Plan7 cell
 
 
 def host_us(fn) -> float:
@@ -73,10 +83,58 @@ def host_us(fn) -> float:
     return statistics.median(per)
 
 
+def plan7_step(dev, rng) -> dict:
+    """The ``plan7`` line: µs a dense step of the Plan7 profile at
+    ``PLAN7_LANES`` lanes without a list and with its list, at the shape
+    function's cluster and at each of ``TUNE``'s pinned sizes."""
+    from spec_viterbi_tpu_torch.io import generate_plan7_hmm
+    from spec_viterbi_tpu_torch.models.decoder import DeviceHMM
+    from spec_viterbi_tpu_torch.ops import tropical
+    from spec_viterbi_tpu_torch.probes.common import median_ms
+
+    dh = DeviceHMM.from_hmm(generate_plan7_hmm(PLAN7_LENG, seed=0), device=dev)
+    n, lanes = dh.padded, PLAN7_LANES
+    a_view, em_t = dh.a.T, dh.emissions.T
+    v = torch.as_tensor(rng.normal(5, 2, size=(n, lanes)).astype(np.float32), device=dev)
+    v[::7] = float("inf")  # the carry's unreachable states
+    obs = torch.as_tensor(rng.integers(0, 20, size=(8, lanes)).astype(np.int32), device=dev)
+    lengths = torch.as_tensor(np.resize(np.array([8, 8, 8, 3, 4, 5], np.int32), lanes), device=dev)
+    t = 4  # lanes of length 3 and 4 keep their carry
+    want = tropical.dense_step_plain(a_view, v, em_t, obs, lengths, t)
+    blk = getattr(dh, "blocks", None)
+    variants = {"none": None} if blk is None else {"none": None, "list": blk}
+    out = {"states": n, "lanes": lanes, "finite": getattr(dh, "finite", None),
+           "list": None if blk is None else {"tiles": blk.tiles, "listed": blk.listed,
+                                             "most": blk.most}}
+    tune = (0,) + (tuple(c for c in TUNE if c) if hasattr(tropical, "minplus_tune") else ())
+    for name, listed in variants.items():
+        kw = {"blocks": listed} if listed is not None else {}
+        c = torch.empty_like(v)
+        for cl in tune:
+            if cl:
+                tropical.minplus_tune(cl)
+            try:
+                def chain():
+                    for _ in range(CHAIN):
+                        tropical.dense_step(a_view, v, em_t, obs, lengths, t, c, **kw)
+
+                us = median_ms(chain, repeats=5) / CHAIN * 1e3
+                shape = tropical.minplus_shape(1, n, n, lanes, dev, **kw)
+                out[f"{name}_cluster{cl or 'auto'}"] = {
+                    "us": us, "cluster": shape["cluster"], "tile": shape["tile"],
+                    "ctas": shape["ctas"], "resident_ctas": shape["resident_ctas"],
+                    "bit_equal": bool(torch.equal(c, want))}
+            finally:
+                if cl:
+                    tropical.minplus_tune()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="", help="a name for the tree under test")
     ap.add_argument("--tune", action="store_true", help="time the pinned cluster sizes")
+    ap.add_argument("--plan7", action="store_true", help="time only the Plan7 step at 512 lanes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("minplus: no CUDA device; nothing was run", file=sys.stderr)
@@ -122,6 +180,10 @@ def main() -> int:
     a_rm = a.T.contiguous()[None]  # the same operator, k contiguous
     out = {"tag": args.tag, "package": spec_viterbi_tpu_torch.__file__, "card": card_line(),
            "one_launch_step": one_launch}
+    if args.plan7:
+        out["plan7"] = plan7_step(dev, rng)
+        print(json.dumps(out), flush=True)
+        return 0
     for j in (56, 8, 512):
         v = normal(1, N, j)
         for am in (False, True):
@@ -209,10 +271,12 @@ def main() -> int:
         obs_ptr = obs.data_ptr() + t * obs.stride(0) * 4
         a_tn = a.T
 
+        no_list = (None, -1) if len(lib.svt_minplus.argtypes) > 21 else ()  # a tree with lists
+
         def launch():  # the step's ctypes call with its arguments ready
             lib.svt_minplus(a_tn.data_ptr(), None, v.data_ptr(), c.data_ptr(), None, 0, 1, N, 1, N,
                             N, DENSE_LANES, em_t.data_ptr(), 1, N, obs_ptr, 0, lengths.data_ptr(), t,
-                            0, stream)
+                            0, *no_list, stream)
 
         def device_context():
             with torch.cuda.device(dev):

@@ -7,6 +7,7 @@ tests marked ``cuda`` skip where there is no card; the others check the
 plain versions against the port's numpy oracle on the CPU.
 """
 
+import block_operators
 import numpy as np
 import pytest
 import torch
@@ -22,6 +23,7 @@ from spec_viterbi_tpu_torch import (
 from spec_viterbi_tpu_torch.hmm import HMM, to_modified_prob_np
 from spec_viterbi_tpu_torch.io.generators import (
     generate_banded_hmm,
+    generate_plan7_hmm,
     generate_profile_hmm,
     generate_random_hmm,
     generate_tie_heavy_banded_hmm,
@@ -1679,6 +1681,118 @@ def test_structured_specializer_on_card(cuda_device, level):
         np.testing.assert_array_equal(g, c)
         assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
     np.testing.assert_array_equal(comp.run_spec(ragged[2]), got_c[2])
+
+
+# ---- svt_minplus with a block list: only the blocks that hold a finite
+# entry (tropical.block_list), the bits of the launch without one
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32)
+
+
+def _listed_step_inputs(rng, n, lanes, device):
+    """A carry with ties and all-+inf rows, emissions, symbols, and lengths
+    with lanes below, at and past ``t = 6`` (padded lanes of length 0)."""
+    v = _minplus_mat(rng, (1, n, lanes), device)[0]
+    em = _minplus_mat(rng, (1, 5, n), device)[0]
+    obs = torch.as_tensor(rng.integers(0, 5, size=(12, lanes)).astype(np.int32), device=device)
+    lengths = torch.as_tensor(np.resize(np.array([0, 1, 5, 6, 7, 12], np.int32), lanes),
+                              device=device)
+    return v, em, obs, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", block_operators.NAMES)
+@pytest.mark.parametrize("lanes", [8, 56, 64, 200, 512])
+def test_dense_step_block_list_equals_no_list_on_card(cuda_device, name, lanes):
+    """``dense_step`` with the operator's block list (64-row tiles: the
+    narrow tiles up to 64 lanes, the wide tile at half its rows past them)
+    against the launch without a list and ``dense_step_plain``, to the bit
+    (+inf equal to +inf): the Plan7 operators at L = 40 and 500, seeded
+    operators with empty blocks and an empty row tile (300 states, off
+    every tile multiple; 512 with ties everywhere), an all-+inf operator
+    (an empty list) and a fully dense one, which gets no list. Masked
+    lanes keep the carry."""
+    a_np = block_operators.operator(name)
+    n = a_np.shape[0]
+    rng = np.random.default_rng(n + lanes)
+    a = torch.as_tensor(a_np, device=cuda_device)
+    blk = tropical.block_list(np.isfinite(a_np).T, cuda_device)
+    assert (blk is None) == (name == "dense")
+    v, em, obs, lengths = _listed_step_inputs(rng, n, lanes, cuda_device)
+    t = 6
+    want = tropical.dense_step_plain(a.T, v, em.T, obs, lengths, t)
+    base = tropical.dense_step(a.T, v, em.T, obs, lengths, t, torch.empty_like(v))
+    assert torch.equal(_bits(base), _bits(want))
+    if blk is None:
+        return
+    out = torch.full_like(v, -1.0)
+    tropical.reset_launches()
+    assert tropical.dense_step(a.T, v, em.T, obs, lengths, t, out, blocks=blk) is out
+    torch.cuda.synchronize()
+    assert tropical.launches == {"minplus": 1}
+    assert torch.equal(_bits(out), _bits(want))
+    frozen = lengths <= t
+    assert torch.equal(_bits(out[:, frozen]), _bits(v[:, frozen]))
+    shape = tropical.minplus_shape(1, n, n, lanes, cuda_device, blocks=blk)
+    assert shape["tile"][0] == tropical.LIST_ROWS
+    assert shape["k_split"] == max(1, -(-blk.most // shape["cluster"])) * tropical.STAGE_K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("lanes", [56, 512])
+def test_dense_step_block_list_cluster_sizes_on_card(cuda_device, cluster, lanes):
+    """The Plan7 operator at L = 500 with its list at each pinned cluster
+    size: a tile whose list is shorter than the cluster leaves ranks with
+    no stage; bit-equal to the launch without a list."""
+    a_np = block_operators.plan7(500)
+    n = a_np.shape[0]
+    rng = np.random.default_rng(cluster + lanes)
+    a = torch.as_tensor(a_np, device=cuda_device)
+    blk = tropical.block_list(np.isfinite(a_np).T, cuda_device)
+    v, em, obs, lengths = _listed_step_inputs(rng, n, lanes, cuda_device)
+    want = tropical.dense_step_plain(a.T, v, em.T, obs, lengths, 6)
+    tropical.minplus_tune(cluster)
+    try:
+        assert tropical.minplus_shape(1, n, n, lanes, cuda_device, blocks=blk)["cluster"] == cluster
+        out = tropical.dense_step(a.T, v, em.T, obs, lengths, 6, torch.empty_like(v), blocks=blk)
+        assert torch.equal(_bits(out), _bits(want))
+    finally:
+        tropical.minplus_tune()
+
+
+@pytest.mark.cuda
+def test_dense_decoder_walks_its_block_list_on_card(cuda_device):
+    """A dense decoder on a Plan7 profile holds its list on the card and
+    its batched decode (one listed launch a step) equals the CPU decoder's
+    bit for bit, ragged lanes included; a list the step cannot take is
+    refused: another operator's, a J = 1 step's and one on the
+    untransposed matrix."""
+    hmm = generate_plan7_hmm(40, seed=5)
+    dec = ViterbiDecoder(hmm, mode="dense", device=cuda_device)
+    cpu = ViterbiDecoder(hmm, mode="dense", device="cpu")
+    assert dec.dev.blocks.table.device.type == "cuda"
+    rng = np.random.default_rng(5)
+    seqs = _seqs(rng, [1, 2, 40, 17, 33, 60, 5, 9, 12, 50, 44] * 7, hmm.emit_num)
+    tropical.reset_launches()
+    got = dec.decode_batch(seqs, bucketed=False)
+    assert tropical.launches["minplus"] == 59
+    for g, c in zip(got, cpu.decode_batch(seqs, bucketed=False)):
+        assert np.array_equal(g.view(np.int32), c.view(np.int32))
+    n = dec.dev.padded
+    v, em, obs, lengths = _listed_step_inputs(rng, n, 56, cuda_device)
+    other = tropical.block_list(np.isfinite(block_operators.plan7(500)).T, cuda_device)
+    with pytest.raises(ValueError, match="does not fit"):
+        tropical.dense_step(dec.dev.a.T, v, em.T, obs, lengths, 1, torch.empty_like(v), blocks=other)
+    one = v[:, :1].contiguous()
+    with pytest.raises(ValueError, match="does not fit"):
+        tropical.dense_step(dec.dev.a.T, one, em.T, obs[:, :1].contiguous(), lengths[:1], 1,
+                            torch.empty_like(one), blocks=dec.dev.blocks)
+    with pytest.raises(ValueError, match="transposed view"):
+        tropical.dense_step(dec.dev.a, v, em.T, obs, lengths, 1, torch.empty_like(v),
+                            blocks=dec.dev.blocks)
 
 
 # ---- time parallelism: svt_minplus at the compose and fold shapes, the

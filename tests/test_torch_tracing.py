@@ -14,7 +14,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from spec_viterbi_tpu_torch.io.generators import generate_plan7_hmm, generate_profile_hmm
+from spec_viterbi_tpu_torch.io.generators import (
+    generate_plan7_hmm,
+    generate_profile_hmm,
+    generate_random_hmm,
+)
 from spec_viterbi_tpu_torch.models.decoder import ViterbiDecoder
 from spec_viterbi_tpu_torch.ops import fused, tropical
 from spec_viterbi_tpu_torch.ops.structured import StructuredOperator
@@ -214,11 +218,13 @@ def test_dense_work_reads_the_plan7_fill_share():
     tropical.reset_launches()
     out = decode_auto(hmm, _seqs([6] * 8), device="cpu")
     assert len(out) == 8 and tropical.launches["minplus"] == 0  # plain steps on the CPU
-    assert tropical.dense_work == {"launched": 1024 ** 2 * 8 * 5, "real": 127_749 * 8 * 5}
+    # 8 lanes take the 64-row tiles: 308 of the 1,024 (tile, 16-k stage) blocks
+    assert tropical.dense_work == {"launched": 1024 ** 2 * 8 * 5, "read": 308 * 64 * 16 * 8 * 5,
+                                   "real": 127_749 * 8 * 5}
     share = 100 * tropical.dense_work["real"] / tropical.dense_work["launched"]
     assert round(share, 2) == 12.18
     tropical.reset_launches()
-    assert tropical.dense_work == {"launched": 0, "real": 0}
+    assert tropical.dense_work == {"launched": 0, "read": 0, "real": 0}
 
 
 def test_dense_work_counts_masked_lanes_as_not_real():
@@ -228,10 +234,32 @@ def test_dense_work_counts_masked_lanes_as_not_real():
     # 5 lanes padded to 8 (three of length 0), 29 steps; a lane is live
     # while a step lies inside its length
     dec.decode_batch(_seqs([30, 12, 1, 25, 30]), bucketed=False)
-    assert tropical.dense_work == {"launched": 128 ** 2 * 8 * 29,
+    assert tropical.dense_work == {"launched": 128 ** 2 * 8 * 29, "read": 10 * 64 * 16 * 8 * 29,
                                    "real": 1019 * (29 + 11 + 0 + 24 + 29)}
     # the structured operator's plain loop and the fused decoder count nothing
     tropical.reset_launches()
     ViterbiDecoder(_model(), device="cpu").decode_batch(_seqs([30] * 4))
     _decoder(_model()).decode_batch(_seqs([30] * 4))
-    assert tropical.dense_work == {"launched": 0, "real": 0}
+    assert tropical.dense_work == {"launched": 0, "read": 0, "real": 0}
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 200])
+def test_dense_work_counts_the_blocks_a_step_reads(lanes):
+    """``read``: the entries of the blocks the step's launch reads, the
+    block list's where the decoder has one (10 of the 16 (64-row, 16-k)
+    blocks of the 128-state Plan7 operator at L = 40), at one lane too,
+    which pads to 8 lanes; the fully populated operator of a random dense
+    model gets no list and reads n_pad² a lane."""
+    dec = _dense_decoder()
+    assert dec.dev.blocks.listed == 10
+    tropical.reset_launches()
+    dec.decode_batch(_seqs([7] * lanes), bucketed=False)
+    padded = max(8, lanes)
+    assert tropical.dense_work["launched"] == 128 ** 2 * padded * 6
+    assert tropical.dense_work["read"] == 10 * 64 * 16 * padded * 6
+    dense = ViterbiDecoder(generate_random_hmm(128, trans_per_state=128, seed=4), mode="dense",
+                           device="cpu")
+    assert dense.dev.blocks is None
+    tropical.reset_launches()
+    dense.decode_batch(_seqs([7] * lanes), bucketed=False)
+    assert tropical.dense_work["read"] == tropical.dense_work["launched"] == 128 ** 2 * padded * 6

@@ -7,8 +7,11 @@ ones that force argmin ties, and all-inf rows. ``minplus_plain``, the plain
 version of the ``svt_minplus`` kernel, is held to a numpy oracle in every
 mode (strided views, an index vector, a shared operator, argmin, K in
 chunks); on the CPU the wrapper ``minplus`` runs it and counts no launch.
+The block list the kernel walks (``block_list``) is held to a
+block-by-block count.
 """
 
+import block_operators
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -227,3 +230,57 @@ def test_dense_step_wrappers_refuse_other_devices():
                             torch.empty_like(v))
     with pytest.raises(ValueError, match="no kernel"):
         tropical.dense_step_mv(a, v[:, 0], a, 0, torch.empty(4, device="meta"))
+
+
+# ---- the block list of svt_minplus -------------------------------------
+
+
+@pytest.mark.parametrize("name", block_operators.NAMES)
+def test_block_list_matches_brute_force(name):
+    """``block_list`` against a block-by-block ``isfinite(...).any()`` of
+    the batched step's view ``A = a.T`` at 64 rows and 16 k a block,
+    padding rows and the ragged last tile and stage included: each tile's
+    run holds exactly its blocks with a finite entry, in ascending stage
+    order. The fully dense operator gets no list; the all-+inf one lists
+    nothing."""
+    a = block_operators.operator(name)
+    blk = tropical.block_list(np.isfinite(a).T, "cpu")
+    want = block_operators.brute_blocks(a, tropical.LIST_ROWS, tropical.STAGE_K)
+    assert (blk is None) == bool(want.all()) == (name == "dense")
+    if blk is None:
+        return
+    table = blk.table.numpy()
+    assert table.dtype == np.int32 and blk.tiles == len(want)
+    off, stages = table[: blk.tiles + 1], table[blk.tiles + 1 :]
+    assert off[0] == 0 and len(stages) == off[-1] == blk.listed == int(want.sum())
+    for t, held in enumerate(want):
+        assert stages[off[t] : off[t + 1]].tolist() == np.nonzero(held)[0].tolist()
+    assert blk.most == int(want.sum(axis=1).max())
+    if name == "all_inf":
+        assert blk.listed == 0 and blk.most == 0
+
+
+def test_plan7_block_counts():
+    """The benchmark's Plan7 operator (LENG 500, 1,024 padded states): 308
+    of its 1,024 (64-row, 16-k) blocks hold a finite entry (30.08%), the
+    heaviest tile 36 of 64; at 128 rows it would be 228 of 512 (44.53%),
+    the heaviest tile 40."""
+    a = block_operators.plan7(500)
+    blk = tropical.block_list(np.isfinite(a).T, "cpu")
+    assert (blk.tiles, blk.listed, blk.most) == (16, 308, 36)
+    wide = block_operators.brute_blocks(a, 128, tropical.STAGE_K)
+    assert (int(wide.sum()), int(wide.sum(axis=1).max())) == (228, 40)
+
+
+def test_dense_step_with_a_list_on_the_cpu_runs_plain():
+    """``dense_step`` on the CPU takes the plain version and gives the same
+    bits with a list as without."""
+    a = block_operators.operator("blocky_300")
+    blk = tropical.block_list(np.isfinite(a).T, "cpu")
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy(_mat(rng, (300, 9), "real"))
+    em = torch.from_numpy(_mat(rng, (5, 300), "real"))
+    obs = torch.from_numpy(rng.integers(0, 5, size=(4, 9)).astype(np.int32))
+    ta = torch.from_numpy(a)
+    got = tropical.dense_step(ta.T, v, em.T, obs, None, 2, torch.empty_like(v), blocks=blk)
+    assert torch.equal(got, tropical.dense_step_plain(ta.T, v, em.T, obs, None, 2))
