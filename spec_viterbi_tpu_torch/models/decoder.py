@@ -34,8 +34,7 @@ from spec_viterbi_tpu_torch.ops.structured import (
     structured_path_batch,
     structured_scores_batch,
 )
-from spec_viterbi_tpu_torch.utils.batching import bucket_plan, pad_batch
-from spec_viterbi_tpu_torch.utils.profiling import span
+from spec_viterbi_tpu_torch.utils.batching import pad_batch
 
 # lane multiple and bucket block of the plain paths, as in the JAX package
 SUBLANE = 8
@@ -184,9 +183,13 @@ class ViterbiDecoder:
     ``"cuda[:i]"``. ``sop`` is the model's structured operator at its
     lane-padded width, where the caller has it; else it is built here.
 
-    Dense mode's ``decode_batch`` opens the spans ``svt.stage``,
-    ``svt.launch`` and ``svt.fetch`` (``utils/profiling.py::span``), and
-    its staging counts ``tropical.dense_work``.
+    The model is on the device once, in ``dev``. Structured mode holds one
+    engine on ``dev``'s emissions and π: the fused engine (``_fused``) on
+    ``cuda`` for a fused-eligible operator unless ``use_kernels=False``,
+    else the plain stream engine (``_plain``), whose structured scan runs
+    the batches. ``decode_batch`` opens the spans ``svt.stage``,
+    ``svt.launch`` and ``svt.fetch`` (``utils/profiling.py::span``) in
+    every mode, and dense mode's staging counts ``tropical.dense_work``.
     """
 
     MODES = ("auto", "dense", "structured")
@@ -208,7 +211,7 @@ class ViterbiDecoder:
         self._use_kernels = use_kernels
         self._stream_engine = None
         padded = pad_to_lane(hmm.states_num)
-        self._sop = self._sop_arrs = None
+        self._sop = None
         if mode in ("auto", "structured"):
             if sop is None:
                 sop = StructuredOperator.from_hmm(hmm, pad_to=padded)
@@ -216,24 +219,20 @@ class ViterbiDecoder:
                 raise ValueError(f"the operator is {sop.states_num} states padded to {sop.n}; "
                                  f"the model {hmm.states_num} padded to {padded}")
             if mode == "structured" or sop.cost_ratio() < 0.125:
-                self._sop, self._sop_arrs = sop, sop.to(self.device)
+                self._sop = sop
                 mode = "structured"
             else:
                 mode = "dense"
         self.mode = mode
         # structured mode never reads the dense [n, n] operators
         self.dev = DeviceHMM.from_hmm(hmm, dense=mode == "dense", device=self.device)
-        self._fused = None
-        if (
-            mode == "structured"
-            and use_kernels is not False
-            and self.device.type == "cuda"
-            and fused.fused_eligible(self._sop)
-        ):
-            self._fused = fused.FusedStructuredDecoder(
-                self._sop, hmm.emission_matrix(pad_to=padded), hmm.start_vector(pad_to=padded),
-                device=self.device,
-            )
+        self._fused = self._plain = None
+        if mode == "structured":
+            model = (self._sop, self.dev.emissions, self.dev.pi)
+            if use_kernels is not False and self.device.type == "cuda" and fused.fused_eligible(self._sop):
+                self._fused = fused.FusedStructuredDecoder(*model, device=self.device)
+            else:
+                self._plain = PlainStreamDecoder(*model, device=self.device)
 
     def decode(self, seq: np.ndarray) -> np.ndarray:
         """``run_Viterbi`` parity: final score vector for one sequence."""
@@ -252,19 +251,17 @@ class ViterbiDecoder:
     def decode_path(self, seq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """(scores, path): the final score vector and the Viterbi path, with
         the oracle's tie rule. Dense mode runs the argmin product a step;
-        structured mode the plain argmin scan on the decoder's device, as
+        structured mode the plain argmin scan on its engine's tensors, as
         the JAX decoder runs this method on its XLA structured path and
         never on the fused kernel."""
         seq = self._validated(seq)
         if self.mode == "dense":
             v, path = _decode_scores_and_path(self.dev.a_t, self.dev.pi, self.dev.emissions, seq)
             return v[: self.states_num].cpu().numpy(), path.cpu().numpy()
+        eng = self._fused or self._plain
         s = torch.as_tensor(seq, device=self.device)[:, None]  # [T, 1]
-        em_t = self.dev.emissions.T
-        v0 = em_t[:, s[0].long()] + self.dev.pi[:, None]
-        v, src = structured_path_batch(
-            self._sop, self._sop_arrs, em_t, v0, s[1:], None, torch.int32
-        )
+        v0 = eng.em_t[:, s[0].long()] + eng.pi[:, None]
+        v, src = structured_path_batch(eng.sop, eng.arrs, eng.em_t, v0, s[1:], None, torch.int32)
         last = torch.argmin(v, dim=0).to(torch.int32)  # [1]
         rev = fused.backtrace_plain(src, last)  # [T-1, 1]
         path = torch.cat([rev[:, 0], last])
@@ -297,23 +294,21 @@ class ViterbiDecoder:
 
         A fused-eligible operator of a structured-mode decoder gets the
         fused engine on the decoder's device (the kernels on ``cuda``,
-        their plain versions on ``cpu``), unless ``use_kernels=False``;
-        every other case, dense mode included, gets the plain stream
-        engine, which takes any operator (a dense-mode decoder builds the
-        decomposition here, on demand). The two engines' saved states are
-        not interchangeable.
+        their plain versions on ``cpu``, built here), unless
+        ``use_kernels=False``; every other structured case gets the
+        decoder's plain engine, and dense mode a plain engine built here
+        on the decomposition, which takes any operator. The two engines'
+        saved states are not interchangeable.
         """
         if self._stream_engine is None:
-            sop = self._sop or StructuredOperator.from_hmm(self.hmm, pad_to=self.dev.padded)
-            n = sop.n
-            em, pi = self.hmm.emission_matrix(pad_to=n), self.hmm.start_vector(pad_to=n)
-            if (self._sop is not None and self._use_kernels is not False
-                    and fused.fused_eligible(sop)):
-                self._stream_engine = self._fused or fused.FusedStructuredDecoder(
-                    sop, em, pi, device=self.device
-                )
-            else:
-                self._stream_engine = PlainStreamDecoder(sop, em, pi, device=self.device)
+            eng = self._fused or self._plain
+            model = (self.dev.emissions, self.dev.pi)
+            if self.mode == "dense":
+                sop = StructuredOperator.from_hmm(self.hmm, pad_to=self.dev.padded)
+                eng = PlainStreamDecoder(sop, *model, device=self.device)
+            elif eng is self._plain and self._use_kernels is not False and fused.fused_eligible(self._sop):
+                eng = fused.FusedStructuredDecoder(self._sop, *model, device=self.device)
+            self._stream_engine = eng
         return self._stream_engine
 
     def prepare_batch(self, seqs: list[np.ndarray], t_pad: int | None = None):
@@ -347,11 +342,9 @@ class ViterbiDecoder:
             return _decode_scores_batch(
                 self.dev.a, self.dev.pi, self.dev.emissions, seqs_t, lengths, self.dev.blocks
             )
-        em_t = self.dev.emissions.T
-        v0 = em_t[:, seqs_t[0].long()] + self.dev.pi[:, None]
-        return structured_scores_batch(
-            self._sop, self._sop_arrs, em_t, v0, seqs_t[1:], lengths
-        ).T
+        eng = self._plain
+        v0 = eng.em_t[:, seqs_t[0].long()] + eng.pi[:, None]
+        return structured_scores_batch(eng.sop, eng.arrs, eng.em_t, v0, seqs_t[1:], lengths).T
 
     def decode_batch(
         self, seqs: list[np.ndarray], bucketed: bool = True
@@ -360,44 +353,12 @@ class ViterbiDecoder:
 
         Per-sequence masking freezes finished lanes, so results equal
         one-at-a-time decoding. Ragged batches are length-bucketed
-        (``bucket_plan``): each bucket runs at its own quantized max
-        length, and every bucket is enqueued before one host transfer.
+        (:func:`~spec_viterbi_tpu_torch.ops.fused.decode_buckets`, at
+        ``SUBLANE`` lanes; the fused engine's at 128): each bucket runs at
+        its own quantized max length, and every bucket is enqueued before
+        one host transfer.
         """
-        if not seqs:
-            return []
         if self._fused is not None:
             return self._fused.decode_batch(seqs, bucketed=bucketed)
-        record = span if self.mode == "dense" else _unrecorded
-        plan = None
-        if bucketed:
-            with record("svt.stage"):
-                plan = bucket_plan([len(s) for s in seqs], lane_block=SUBLANE)
-        if plan is None:
-            with record("svt.stage"):
-                handle = self.prepare_batch(seqs)
-            with record("svt.launch"):
-                out = self.run_batch(handle)
-            with record("svt.fetch"):
-                v = out.cpu().numpy()
-                return [v[i, : self.states_num] for i in range(len(seqs))]
-        outs = []
-        for idx, t_q in plan:
-            with record("svt.stage"):
-                handle = self.prepare_batch([seqs[i] for i in idx], t_pad=t_q)
-            with record("svt.launch"):
-                outs.append(self.run_batch(handle)[: len(idx)])
-        with record("svt.fetch"):
-            v = torch.cat(outs, dim=0).cpu().numpy()
-            result: list[np.ndarray | None] = [None] * len(seqs)
-            row = 0
-            for idx, _ in plan:
-                for i in idx:
-                    result[i] = v[row, : self.states_num]
-                    row += 1
-        return result
-
-
-def _unrecorded(name: str):
-    """A stand-in for :func:`span` that records nothing: the plain
-    structured loop opens no stage spans."""
-    return contextlib.nullcontext()
+        return fused.decode_buckets(seqs, bucketed, SUBLANE, self.prepare_batch, self.run_batch,
+                                    self.states_num)

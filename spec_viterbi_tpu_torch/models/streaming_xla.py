@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spec_viterbi_tpu_torch.ops.fused import _StreamAPI, backtrace_plain, model_key, path_budget_bytes
+from spec_viterbi_tpu_torch.ops.fused import _StreamAPI, backtrace_plain, path_budget_bytes
 from spec_viterbi_tpu_torch.ops.structured import (
     StructuredOperator,
     structured_path_batch,
@@ -29,13 +29,19 @@ from spec_viterbi_tpu_torch.ops.structured import (
 
 class PlainStreamDecoder(_StreamAPI):
     """Streaming engine on the plain structured scan; any operator, any
-    device (the counterpart of the JAX package's ``XLAStreamDecoder``)."""
+    device (the counterpart of the JAX package's ``XLAStreamDecoder``).
+
+    ``emissions`` [E, n] and ``pi`` [n] are numpy arrays or tensors; a
+    float32 tensor already on ``device`` is not uploaded again. ``arrs``
+    holds the operator's tensors, uploaded once here."""
+
+    _KEY_PREFIX = "torch-plain"
 
     def __init__(
         self,
         sop: StructuredOperator,
-        emissions: np.ndarray,
-        pi: np.ndarray,
+        emissions: np.ndarray | torch.Tensor,
+        pi: np.ndarray | torch.Tensor,
         *,
         device: torch.device | str,
     ):
@@ -44,12 +50,10 @@ class PlainStreamDecoder(_StreamAPI):
         self.n = sop.n
         self.states_num = sop.states_num
         self.emit_num = int(emissions.shape[0])
-        self._arrs = sop.to(self.device)
-        self.em_t = torch.as_tensor(
-            np.ascontiguousarray(np.asarray(emissions, np.float32).T), device=self.device
-        )  # [n, E]
-        self.pi = torch.as_tensor(np.asarray(pi, np.float32), device=self.device)
-        self._model_key = model_key("torch-plain", sop, emissions, pi)
+        self.arrs = sop.to(self.device)
+        em = torch.as_tensor(emissions, dtype=torch.float32, device=self.device)
+        self.em_t = em.T.contiguous()  # [n, E]
+        self.pi = torch.as_tensor(pi, dtype=torch.float32, device=self.device)
         # one [T_q, B, n] int32 backpointer block materializes per finalize
         # chunk, under the fused engine's budget
         self.MAX_PATH_BYTES = path_budget_bytes(self.device)
@@ -59,11 +63,11 @@ class PlainStreamDecoder(_StreamAPI):
         return max(0, t_max - 1) * self.n * batch * 4 <= self.MAX_PATH_BYTES
 
     def _feed(self, carry, syms, lengths):
-        return structured_scores_batch(self.sop, self._arrs, self.em_t, carry, syms, lengths)
+        return structured_scores_batch(self.sop, self.arrs, self.em_t, carry, syms, lengths)
 
     def _path_pointers(self, carry, syms, lengths):
         return structured_path_batch(
-            self.sop, self._arrs, self.em_t, carry, syms, lengths, torch.int32
+            self.sop, self.arrs, self.em_t, carry, syms, lengths, torch.int32
         )[1]
 
     def _backtrace(self, src, boundary):

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 from typing import NamedTuple
@@ -839,6 +840,38 @@ def stage_batch(seqs: list[np.ndarray], emit_num: int, device: torch.device,
     return seqs_t, torch.as_tensor(lengths, device=device), masked
 
 
+def decode_buckets(seqs: list[np.ndarray], bucketed: bool, lane_block: int, stage, run,
+                   states_num: int) -> list[np.ndarray]:
+    """The bucketed batch loop of the single-device engines: final score
+    vectors in the caller's order.
+
+    The bucket plan (:func:`bucket_plan` at ``lane_block`` lanes; the whole
+    batch where it gives none or ``bucketed`` is False), then a call a
+    bucket, ``stage(seqs, t_pad)`` → handle and ``run(handle)`` → [B, n]
+    device scores, every bucket enqueued before the one device-to-host
+    copy. Opens ``svt.stage`` (the plan, then each staging), ``svt.launch``
+    and ``svt.fetch``."""
+    if not seqs:
+        return []
+    plan = None
+    if bucketed:
+        with span("svt.stage"):
+            plan = bucket_plan([len(s) for s in seqs], lane_block=lane_block)
+    plan = plan or [(range(len(seqs)), None)]
+    outs = []
+    for idx, t_pad in plan:
+        with span("svt.stage"):
+            handle = stage([seqs[i] for i in idx], t_pad)
+        with span("svt.launch"):
+            outs.append(run(handle)[: len(idx), :states_num])
+    with span("svt.fetch"):
+        v = (outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)).cpu().numpy()
+        result: list[np.ndarray | None] = [None] * len(seqs)
+        for row, i in enumerate(i for idx, _ in plan for i in idx):
+            result[i] = v[row]
+    return result
+
+
 def fetch_paths(paths: torch.Tensor, lengths: list[int]) -> list[np.ndarray]:
     """Per-lane int32 paths from a device path tensor ``[B, T]``: widened
     and made lane-major on its device (nothing to do for a contiguous int32
@@ -905,8 +938,8 @@ class _StreamAPI:
     ``stream_begin/feed/scores`` (constant-memory scores over unbounded
     input), the ``stream_*_path`` family (exact paths by checkpoint and
     rematerialize), and ``stream_save/load``. An engine provides
-    ``device``, ``n``, ``states_num``, ``emit_num``, ``em_t`` [n, E],
-    ``pi`` [n], ``_model_key``, ``path_supported`` and the compute hooks
+    ``device``, ``sop``, ``n``, ``states_num``, ``emit_num``, ``em_t``
+    [n, E], ``pi`` [n], ``_KEY_PREFIX``, ``path_supported`` and the compute hooks
     ``_feed(carry, syms, lengths)``, ``_path_pointers(carry, syms,
     lengths) → src [T, B, n]`` and ``_backtrace(src, boundary)``. Two
     engines exist: :class:`FusedStructuredDecoder` (the kernels) and
@@ -914,6 +947,12 @@ class _StreamAPI:
     (the plain structured scan, any operator). Both carries are in +inf
     space, [n, B], with no lane padding.
     """
+
+    @functools.cached_property
+    def _model_key(self) -> str:
+        """:func:`model_key` of this engine's model, computed when
+        ``stream_save`` or ``stream_load`` first reads it."""
+        return model_key(self._KEY_PREFIX, self.sop, self.em_t.T.cpu().numpy(), self.pi.cpu().numpy())
 
     def stream_begin(self, first_symbols: np.ndarray) -> StreamState:
         """[B] first symbols → streaming state (device carry [n, B])."""
@@ -1137,13 +1176,19 @@ class _StreamAPI:
 
 class FusedStructuredDecoder(_StreamAPI):
     """Whole-sequence fused decoder for one HMM: batched scores, exact
-    paths, and the streaming protocol on the kernels."""
+    paths, and the streaming protocol on the kernels.
+
+    ``emissions`` [E, n] and ``pi`` [n] are numpy arrays or tensors; a
+    float32 tensor already on ``device`` is kept as it is, not copied.
+    ``arrs`` holds the operator's tensors, uploaded once here."""
+
+    _KEY_PREFIX = "torch-fused"
 
     def __init__(
         self,
         sop: StructuredOperator,
-        emissions: np.ndarray,
-        pi: np.ndarray,
+        emissions: np.ndarray | torch.Tensor,
+        pi: np.ndarray | torch.Tensor,
         *,
         device: torch.device | str,
     ):
@@ -1158,12 +1203,11 @@ class FusedStructuredDecoder(_StreamAPI):
         self.n = n
         self.states_num = sop.states_num
         self.emit_num = emissions.shape[0]
-        self.em = torch.as_tensor(
-            np.ascontiguousarray(emissions, np.float32), device=self.device
-        )  # [E, n]
+        self.em = torch.as_tensor(emissions, dtype=torch.float32, device=self.device).contiguous()  # [E, n]
         self.em_t = self.em.T.contiguous()  # [n, E]
-        self.pi = torch.as_tensor(np.asarray(pi, np.float32), device=self.device)
-        self._masked = MaskedTables.build(sop, sop.to(self.device))
+        self.pi = torch.as_tensor(pi, dtype=torch.float32, device=self.device)
+        self.arrs = sop.to(self.device)
+        self._masked = MaskedTables.build(sop, self.arrs)
 
         plan = _plan_uniform_cols(sop)
         self._col_plan = plan[1] if plan else None
@@ -1185,7 +1229,6 @@ class FusedStructuredDecoder(_StreamAPI):
         # path kernel an even state count), the generic arms the rest
         self._scores_arm = self._masked if self._fs is None else self._fs
         self._path_arm = self._masked if self._fs is None or n % 2 else self._fs
-        self._model_key = model_key("torch-fused", sop, emissions, pi)
         # the memory budget of one path call's int16 backpointer tensor;
         # the tests set it lower to force lane chunks and refusals
         self.MAX_PATH_BYTES = path_budget_bytes(self.device)
@@ -1222,39 +1265,12 @@ class FusedStructuredDecoder(_StreamAPI):
     ) -> list[np.ndarray]:
         """Decode a set of sequences; returns final score vectors.
 
-        Ragged multi-block batches are length-bucketed (`bucket_plan`):
-        each bucket runs only its own quantized max length. Every bucket
-        is enqueued before the one device-to-host copy.
+        Ragged multi-block batches are length-bucketed at 128 lanes
+        (:func:`decode_buckets`): each bucket runs only its own quantized
+        max length. Every bucket is enqueued before the one device-to-host
+        copy.
         """
-        if not seqs:
-            return []
-        plan = None
-        if bucketed:
-            with span("svt.stage"):
-                plan = bucket_plan([len(s) for s in seqs], lane_block=BB)
-        if plan is None:
-            with span("svt.stage"):
-                seqs_t, lengths, masked = self.prepare(seqs)
-            with span("svt.launch"):
-                out = self._run(seqs_t, lengths, masked=masked, b_real=len(seqs))
-            with span("svt.fetch"):
-                v = out.cpu().numpy()
-                return [v[i] for i in range(len(seqs))]
-        outs = []
-        for idx, t_q in plan:
-            with span("svt.stage"):
-                st, ln, masked = self.prepare([seqs[i] for i in idx], t_pad=t_q)
-            with span("svt.launch"):
-                outs.append(self._run(st, ln, masked=masked, b_real=len(idx)))
-        with span("svt.fetch"):
-            v = torch.cat(outs, dim=0).cpu().numpy()
-            result: list[np.ndarray | None] = [None] * len(seqs)
-            row = 0
-            for idx, _ in plan:
-                for i in idx:
-                    result[i] = v[row]
-                    row += 1
-        return result
+        return decode_buckets(seqs, bucketed, BB, self.prepare, self.run_prepared, self.states_num)
 
     # ---- exact paths -----------------------------------------------------
 

@@ -123,6 +123,8 @@ def test_auto_resolves_like_jax():
         ref_dec = RefDecoder(_ref(hmm), mode="auto")
         assert dec.mode == ref_dec.mode == want
         assert (dec.dev.a is None) == (want == "structured")
+        # on the CPU a structured decoder holds the plain engine and no other
+        assert dec._fused is None and (dec._plain is None) == (want == "dense")
         s = _seqs(hmm, 3, count=3)[2]
         np.testing.assert_array_equal(dec.decode(s), np.asarray(ref_dec.decode(s)))
 

@@ -434,6 +434,32 @@ def test_decoder_goes_through_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+def test_decode_auto_uploads_the_model_once(cuda_device, monkeypatch):
+    """One ``decode_auto`` call on an MSV-shaped model builds one fused
+    engine on the decoder's device copy of the model: the emissions are
+    made once, the operator's tensors uploaded once, and nothing hashes
+    the model."""
+    from spec_viterbi_tpu_torch.scheduler import decode_auto
+
+    hmm = generate_profile_hmm(500, seed=2)
+    counts = {"to": 0, "emission_matrix": 0, "model_key": 0}
+    for owner, name in ((StructuredOperator, "to"), (HMM, "emission_matrix"), (fused, "model_key")):
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(owner, name, counted)
+    seqs = _seqs(np.random.default_rng(4), [40] * 8 + [17, 3], 20)
+    fused.reset_launches()
+    got = decode_auto(hmm, seqs, device=cuda_device)
+    assert counts == {"to": 1, "emission_matrix": 1, "model_key": 0}
+    assert fused.launches["scores_masked_planned"] == 1
+    for g, s in zip(got, seqs):
+        np.testing.assert_array_equal(g, viterbi_scores_oracle(hmm, s))
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_inputs(cuda_device):
     fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
     st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 5], 20))

@@ -337,6 +337,33 @@ def _ring(step):
     )
 
 
+@pytest.mark.parametrize("engine", ["fused", "plain"])
+def test_model_key_waits_for_save_or_load(tmp_path, monkeypatch, engine):
+    """Neither the decoder nor its stream engine hashes the model when it is
+    built; the first save hashes the same values as before (the numpy
+    emissions and π), and a state saved for another model is refused."""
+    calls = []
+    real = fused.model_key
+    monkeypatch.setattr(fused, "model_key", lambda *a: calls.append(a[0]) or real(*a))
+    kernels = None if engine == "fused" else False
+    decs = [port.ViterbiDecoder(_ring(k), use_kernels=kernels, mode="structured", device="cpu")
+            for k in (1, 2)]
+    e1, e2 = (dec.streaming() for dec in decs)
+    assert type(e1) is {"fused": fused.FusedStructuredDecoder, "plain": PlainStreamDecoder}[engine]
+    assert calls == []
+    p = str(tmp_path / "state.npz")
+    e1.stream_save(e1.stream_begin(np.array([0, 1], np.int32)), p)
+    prefix = f"torch-{engine}"
+    assert calls == [prefix]
+    sop = StructuredOperator.from_hmm(_ring(1))
+    em, pi = _ring(1).emission_matrix(pad_to=sop.n), _ring(1).start_vector(pad_to=sop.n)
+    assert e1._model_key == real(prefix, sop, em, pi)
+    assert e1.stream_load(p).b_real == 2
+    with pytest.raises(ValueError, match="different model"):
+        e2.stream_load(p)
+    assert calls == [prefix, prefix]
+
+
 def test_stream_load_refuses_foreign_states(tmp_path):
     """stream_load refuses a structurally different model (identical value
     bytes, other diagonal offset), the other engine's state, and states

@@ -4,7 +4,7 @@
 ``FusedStructuredDecoder.decode_batch`` and
 ``decode_path_batch`` open ``svt.stage``, ``svt.launch`` and ``svt.fetch``
 (on the CPU the decoder runs its kernels' plain versions), and so does
-``ViterbiDecoder.decode_batch`` in dense mode. Every span is a
+``ViterbiDecoder.decode_batch`` in every mode. Every span is a
 plain host op of the profiler, never a user annotation, which the profiler
 would mirror onto a card's timeline as device activity.
 """
@@ -79,8 +79,10 @@ def test_decode_auto_records_plan_then_build():
     seqs = _seqs([30] * 5)
     out, events = _spans(lambda: decode_auto(hmm, seqs, device="cpu"))
     assert len(out) == 5
-    # on the CPU the decoder takes its structured path, which opens no stage
-    assert _names(events) == ["svt.plan", "svt.build"]
+    # on the CPU the decoder takes its plain structured loop: the bucket
+    # plan (none for uniform lengths), a staging, a launch, a fetch
+    assert _names(events) == ["svt.plan", "svt.build", "svt.stage", "svt.stage", "svt.launch",
+                              "svt.fetch"]
     _assert_disjoint(events)
 
 
@@ -184,8 +186,15 @@ def _dense_decoder(length=40):
     return dec
 
 
-def test_dense_decode_batch_spans():
-    dec = _dense_decoder()
+@pytest.mark.parametrize("mode", ["dense", "structured"])
+def test_dense_decode_batch_spans(mode):
+    """Dense mode and the plain structured loop open the fused engine's
+    spans in the same order, bucketed at 8 lanes."""
+    if mode == "dense":
+        dec = _dense_decoder()
+    else:
+        dec = ViterbiDecoder(_model(), mode="structured", device="cpu")
+        assert dec._fused is None and dec._plain is not None
     out, events = _spans(lambda: dec.decode_batch(_seqs([30] * 20)))
     assert len(out) == 20
     # the bucket plan (none for uniform lengths), a staging, a launch, a fetch
