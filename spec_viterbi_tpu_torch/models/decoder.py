@@ -34,7 +34,6 @@ from spec_viterbi_tpu_torch.ops.structured import (
     structured_path_batch,
     structured_scores_batch,
 )
-from spec_viterbi_tpu_torch.utils.batching import pad_batch
 
 # lane multiple and bucket block of the plain paths, as in the JAX package
 SUBLANE = 8
@@ -312,26 +311,27 @@ class ViterbiDecoder:
         return self._stream_engine
 
     def prepare_batch(self, seqs: list[np.ndarray], t_pad: int | None = None):
-        """Validate, pad and upload a batch once; returns a device handle.
+        """Validate and upload a batch once (:func:`fused.stage_batch`);
+        returns a device handle: the fused engine's, else ``(seqs_t [T,
+        B_pad], lengths [B_pad])``, lanes padded to ``SUBLANE``.
 
         ``t_pad`` forces a fixed (bucket-quantized) time length.
         """
         if self._fused is not None:
             return self._fused.prepare(seqs, t_pad=t_pad)
-        seqs = [validate_obs_seq(s, self.hmm.emit_num) for s in seqs]
-        batch, lengths = pad_batch(seqs, SUBLANE, t_pad=t_pad)
+        seqs_t, lengths, _ = fused.stage_batch(seqs, self.hmm.emit_num, self.device, t_pad,
+                                               lane_multiple=SUBLANE)
         if self.mode == "dense":
-            lanes, t_total = batch.shape
+            t_total, lanes = seqs_t.shape
             blocks = self.dev.blocks  # lanes pad to SUBLANE: the step reads its list
             read = blocks.listed * tropical.LIST_ROWS * tropical.STAGE_K if blocks else self.dev.padded ** 2
             tropical.dense_work["launched"] += self.dev.padded ** 2 * lanes * (t_total - 1)
             tropical.dense_work["read"] += read * lanes * (t_total - 1)
-            live = int(np.maximum(lengths.astype(np.int64) - 1, 0).sum())
+            # every staged sequence holds a symbol: a lane is live for its
+            # length less one steps
+            live = sum(map(len, seqs)) - len(seqs)
             tropical.dense_work["real"] += self.dev.finite * live
-        return (
-            torch.as_tensor(batch.T.copy(), device=self.device),
-            torch.as_tensor(lengths, device=self.device),
-        )
+        return seqs_t, lengths
 
     def run_batch(self, handle) -> torch.Tensor:
         """Decode a prepared batch; returns [B, n] device scores."""

@@ -96,9 +96,14 @@ launches = {
 # steps of real symbols (``real``); their difference is padding.
 lane_steps = {"launched": 0, "real": 0}
 
+# Batches staged by stage_batch, counted from host values: every batch, the
+# batches packed into pinned host memory (those for a CUDA device), and the
+# bytes of the packed buffers handed to the device.
+staging = {"batches": 0, "pinned": 0, "bytes": 0}
+
 
 def reset_launches() -> None:
-    for counts in (launches, lane_steps):
+    for counts in (launches, lane_steps, staging):
         for k in counts:
             counts[k] = 0
 
@@ -798,46 +803,145 @@ def _check_cuda(n, em, v0, obs, lengths) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _expand_symbols(flat, off, last, t_total: int) -> torch.Tensor:
-    """Ragged → rectangular ``[T, B]`` on the device:
-    ``out[t, b] = flat[min(off[b] + t, last[b])]`` — time padding repeats
-    each lane's final symbol (padded steps are masked)."""
-    t_iota = torch.arange(t_total, dtype=torch.int64, device=flat.device)[:, None]
-    idx = torch.minimum(off[None, :] + t_iota, last[None, :])
-    return flat[idx]
+def _refuse(seqs, emit_num: int) -> None:
+    """Raise the per-sequence check's error for a batch the packed check
+    refused: the first faulty sequence's, as when each was checked alone."""
+    for s in seqs:
+        validate_obs_seq(s, emit_num)
+
+
+def _pack(seqs, emit_num: int, lanes: int, pinned: bool) -> tuple[torch.Tensor, np.ndarray]:
+    """Validate a batch in one host pass and pack it into one int32 buffer,
+    ``[lengths (lanes) | symbols]``, lanes past the batch of length 0.
+
+    Each sequence is cast as ``validate_obs_seq`` casts it
+    (``np.asarray(seq, dtype=np.int32)``; a scalar is one symbol); one range
+    check then covers the packed symbols (their uint32 view, so a negative
+    symbol fails it too). ``pinned`` takes the buffer from PyTorch's pinned
+    host allocator, which hands a block out again only once the copies that
+    read it have finished; nothing writes the buffer after this. Returns the
+    buffer and its lengths (a view)."""
+    arrs = [np.ascontiguousarray(s, dtype=np.int32) for s in seqs]
+    if not arrs:
+        raise ValueError("cannot stage an empty batch")
+    if any(a.ndim != 1 for a in arrs):
+        _refuse(seqs, emit_num)
+    sizes = [a.size for a in arrs]
+    buf = torch.empty(lanes + sum(sizes), dtype=torch.int32, pin_memory=pinned)
+    host = buf.numpy()
+    lengths = host[:lanes]
+    lengths[: len(sizes)] = sizes
+    lengths[len(sizes):] = 0
+    syms = np.concatenate(arrs, out=host[lanes:])
+    if syms.size and syms.view(np.uint32).max() >= emit_num:
+        _refuse(seqs, emit_num)
+    if 0 in sizes:
+        # the recurrence consumes seq[0] before any masking
+        raise ValueError("cannot decode an empty sequence")
+    return buf, lengths
+
+
+# A lane chunk of the padded layout takes at most a quarter of seqs_t's
+# device bytes, or this many where that is more (a small batch goes up in
+# one chunk). Each element of its part of seqs_t costs the packed symbol in
+# the scratch, and where the chunk is gathered, its int64 index, mask bit
+# and gathered copy besides.
+CHUNK_MIN_BYTES = 1 << 20
+
+
+def _lay_out_padded(buf: torch.Tensor, host_len: np.ndarray, b: int, t_total: int,
+                    gather: bool, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded layout of a packed buffer (:func:`stage_batch`), in lane
+    chunks: each chunk's symbols, one contiguous slice of the buffer, are
+    copied into one device scratch and laid out from there, in stream
+    order."""
+    lanes = host_len.size
+    lengths = buf[:lanes].to(device, non_blocking=True)
+    syms = buf[lanes:]
+    seqs_t = torch.empty((t_total, lanes), dtype=torch.int32, device=device)
+    ends = np.cumsum(host_len, dtype=np.int64)
+    starts = ends - host_len
+    per_lane = t_total * (4 + 8 + 1 + 4 if gather else 4)
+    step = max(1, lanes * t_total // per_lane, CHUNK_MIN_BYTES // per_lane)
+    # a uniform batch fills its lanes, and the padded ones stay 0; a
+    # gathered chunk reads a lane's steps past its length, and the padded
+    # lanes, from one 0 past the scratch's symbols
+    span = lanes if gather else b
+    chunks = [(b0, min(b0 + step, span)) for b0 in range(0, span, step)]
+    most = max(int(ends[b1 - 1] - starts[b0]) for b0, b1 in chunks)
+    scratch = torch.empty(most + 1, dtype=torch.int32, device=device)
+    if gather:
+        scratch[most:].zero_()
+        t = torch.arange(t_total, device=device)[:, None]
+    else:
+        seqs_t[:, b:].zero_()
+    for b0, b1 in chunks:
+        lo, hi = int(starts[b0]), int(ends[b1 - 1])
+        scratch[: hi - lo].copy_(syms[lo:hi], non_blocking=True)
+        if gather:
+            ln = lengths[b0:b1]
+            idx = (torch.cumsum(ln, 0) - ln) + t  # [T, chunk] int64
+            idx.masked_fill_(t >= ln, most)
+            seqs_t[:, b0:b1] = scratch[idx]
+            del idx  # before the next chunk's is made
+        else:
+            seqs_t[:, b0:b1] = scratch[: hi - lo].view(b1 - b0, t_total).T
+    return seqs_t, lengths
 
 
 def stage_batch(seqs: list[np.ndarray], emit_num: int, device: torch.device,
-                t_pad: int | None = None):
-    """Validate a batch and upload it once → (seqs_t [T, B] int32,
-    lengths [B] int32, masked) on ``device``; T is at least 2 and at least
-    ``t_pad``. ``masked`` is False only when every lane runs every step."""
-    seqs = [validate_obs_seq(s, emit_num) for s in seqs]
-    if any(len(s) == 0 for s in seqs):
-        # the recurrence consumes seq[0] before any masking
-        raise ValueError("cannot decode an empty sequence")
-    t_min = max(2, t_pad or 2)
+                t_pad: int | None = None, lane_multiple: int | None = None):
+    """Validate a batch in one host pass, upload it without blocking the
+    host, and lay it out ``[T, B]`` on ``device`` → (seqs_t int32, lengths
+    int32, masked).
+
+    Two layouts. Without ``lane_multiple``, the fused engines': seqs_t
+    [T, B] with T at least 2 and at least ``t_pad``, a lane past its length
+    repeating its last symbol; lengths [B]. With it, the dense and plain
+    engines' (``pad_batch``'s, transposed): lanes padded to the multiple
+    with symbol 0 and length 0, steps past a lane's length 0, T the longest
+    length or ``t_pad`` (not below it). ``masked`` is False only when every
+    lane runs every one of the T steps.
+
+    :func:`_pack` validates and packs the batch, into pinned memory for a
+    CUDA device. An unmasked batch is the device transpose of its packed
+    [B, T] rows; a masked one is gathered, ``min(off + t, last)`` (the
+    padded layout: ``off + t`` inside the lane, else a 0). The fused layout
+    goes up in one copy. The padded one goes up in lane chunks
+    (:func:`_lay_out_padded`): a dense step's carries are small beside
+    seqs_t, so a whole packed copy beside it would set the call's peak."""
+    device = torch.device(device)
     b = len(seqs)
-    t_total = max(t_min, max(len(s) for s in seqs))
-    lengths = np.array([len(s) for s in seqs], dtype=np.int32)
-    lane_steps["launched"] += b * (t_total - 1)
-    lane_steps["real"] += int(lengths.sum()) - b
-    off = np.zeros(b, dtype=np.int64)
-    np.cumsum(lengths[: b - 1], out=off[1:])
-    last = off + lengths - 1
-    seqs_t = _expand_symbols(
-        torch.as_tensor(np.concatenate(seqs), device=device),
-        torch.as_tensor(off, device=device),
-        torch.as_tensor(last, device=device),
-        t_total,
-    )
-    # mask when lengths differ OR when padding added timesteps every
-    # lane would otherwise run (uniform length-1 batch, t_pad overshoot)
-    masked = (
-        len({len(s) for s in seqs}) > 1
-        or max(len(s) for s in seqs) < t_min
-    )
-    return seqs_t, torch.as_tensor(lengths, device=device), masked
+    padded = lane_multiple is not None
+    lanes = -(-b // lane_multiple) * lane_multiple if padded else b
+    pinned = device.type == "cuda"
+    buf, host_len = _pack(seqs, emit_num, lanes, pinned)
+    t_max = int(host_len.max())
+    if padded:
+        if t_pad is not None and t_pad < t_max:
+            raise ValueError(f"t_pad={t_pad} below the batch max length")
+        t_total = t_max if t_pad is None else t_pad
+    else:
+        t_total = max(2, t_pad or 2, t_max)
+        lane_steps["launched"] += b * (t_total - 1)
+        lane_steps["real"] += int(host_len.sum()) - b
+    staging["batches"] += 1
+    staging["pinned"] += pinned
+    staging["bytes"] += buf.nbytes
+    # mask when lengths differ OR when padding added timesteps every lane
+    # would otherwise run (uniform length-1 batch, t_pad overshoot)
+    masked = int(host_len[:b].min()) != t_total
+    if padded:
+        return (*_lay_out_padded(buf, host_len, b, t_total, masked, device), masked)
+    dev = buf.to(device, non_blocking=True)
+    lengths = dev[:b].clone()
+    syms = dev[b:]
+    if not masked:
+        return syms.view(b, t_total).T.contiguous(), lengths, False
+    t = torch.arange(t_total, device=device)[:, None]
+    idx = torch.minimum(t, lengths - 1)  # [T, B] int64
+    idx += torch.cumsum(lengths, 0) - lengths
+    return syms[idx], lengths, True
 
 
 def decode_buckets(seqs: list[np.ndarray], bucketed: bool, lane_block: int, stage, run,
@@ -1328,7 +1432,6 @@ class FusedStructuredDecoder(_StreamAPI):
             return []
         with span("svt.stage"):
             calls = self._path_calls(seqs, bucketed)
-        # a blocking upload waits for the stream, so stage every call first
         staged = []
         for idx, t_q in calls:
             with span("svt.stage"):

@@ -460,6 +460,75 @@ def test_decode_auto_uploads_the_model_once(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_handles_staged_back_to_back_on_card(cuda_device):
+    """Four batches staged before any run, each packed into a fresh pinned
+    buffer while the uploads before it are still queued (the stream is
+    held busy first): each handle equals the CPU staging of its batch and
+    decodes to the oracle's scores, so no buffer was handed out again, nor
+    written, before its copy had run."""
+    hmm = generate_profile_hmm(126, seed=5)
+    fd = _decoder(hmm, cuda_device)
+    rng = np.random.default_rng(9)
+    ragged = rng.integers(1, 600, size=256)
+    batches = [_seqs(rng, lengths, hmm.emit_num) for lengths in ([600] * 256, ragged, [600] * 256,
+                                                                 rng.permutation(ragged))]
+    fused.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream: every upload below waits behind it
+    handles = [fd.prepare(b) for b in batches]
+    assert fused.staging["pinned"] == fused.staging["batches"] == 4
+    outs = [fd.run_prepared(h) for h in handles]
+    for b, handle, out in zip(batches, handles, outs):
+        st, ln, masked = fused.stage_batch(b, hmm.emit_num, "cpu")
+        assert torch.equal(handle[0].cpu(), st) and torch.equal(handle[1].cpu(), ln)
+        assert handle[2] is masked
+        out = out.cpu().numpy()
+        for i in range(0, len(b), 41):
+            np.testing.assert_array_equal(out[i, : hmm.states_num], viterbi_scores_oracle(hmm, b[i]))
+
+
+@pytest.mark.cuda
+def test_decode_auto_stages_through_pinned_memory(cuda_device):
+    """A ``decode_auto`` call on a 500-node MSV-shaped model stages its
+    batch through pinned host memory, in one buffer of the lengths and the
+    symbols."""
+    from spec_viterbi_tpu_torch.scheduler import decode_auto
+
+    hmm = generate_profile_hmm(500, seed=2)
+    seqs = _seqs(np.random.default_rng(6), [300] * 64, 20)
+    fused.reset_launches()
+    got = decode_auto(hmm, seqs, device=cuda_device)
+    assert fused.staging == {"batches": 1, "pinned": 1, "bytes": 4 * (64 + 64 * 300)}
+    for g, s in zip(got[:3], seqs):
+        np.testing.assert_array_equal(g, viterbi_scores_oracle(hmm, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+def test_dense_staging_memory_on_card(cuda_device, ragged):
+    """A dense decoder's staging raises the card's allocated peak by at
+    most seqs_t and a quarter-batch chunk (beside the per-lane arrays):
+    the symbols go up and are laid out in lane chunks through one scratch,
+    never as a whole packed copy beside seqs_t."""
+    dec = ViterbiDecoder(generate_plan7_hmm(40, seed=1), device=cuda_device)
+    assert dec.mode == "dense"
+    rng = np.random.default_rng(11)
+    lanes = 512
+    lengths = rng.integers(1, 3001, size=lanes) if ragged else [3000] * lanes
+    seqs = _seqs(rng, lengths, dec.hmm.emit_num)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    seqs_t, ln = dec.prepare_batch(seqs)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda_device) - base
+    chunk = lanes // 4 * seqs_t.shape[0] * 4
+    assert rise <= seqs_t.nbytes + chunk + (64 << 10)
+    st, want_ln, _ = fused.stage_batch(seqs, dec.hmm.emit_num, "cpu", None, lane_multiple=8)
+    assert torch.equal(seqs_t.cpu(), st) and torch.equal(ln.cpu(), want_ln)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_inputs(cuda_device):
     fd = _decoder(generate_profile_hmm(20, seed=3), cuda_device)
     st, ln, _ = fd.prepare(_seqs(np.random.default_rng(3), [5, 5], 20))
